@@ -1,0 +1,40 @@
+"""red_gym_tpu_torch stands alone: no JAX, nothing of red_gym_tpu, and no
+Triton import at module level (it exists only on the GPU machine)."""
+
+import ast
+import glob
+import os
+
+import pytest
+
+PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "red_gym_tpu_torch")
+SOURCES = sorted(glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "red_gym_tpu")
+
+
+def _imports(tree):
+    """(module name, at module level) for every import statement."""
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module, id(node) in top
+
+
+def test_package_has_sources():
+    names = {os.path.relpath(p, PKG) for p in SOURCES}
+    assert {"env.py", "rollout.py", "interop.py", "ops/scan_kernels.py"} <= names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, PKG))
+def test_no_forbidden_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for name, at_top in _imports(tree):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path} imports {name}"
+        assert not (root == "triton" and at_top), \
+            f"{path} imports triton at module level"
