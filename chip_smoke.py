@@ -10,17 +10,35 @@ Phases, one line or more each; any failure exits non-zero before the last
 line:
 
 1. the card (nvidia-smi name and power limit);
-2. build every CUDA kernel under red_gym_tpu_torch/csrc/ (nvcc);
+2. build every CUDA kernel under red_gym_tpu_torch/csrc/ (one nvcc each, in
+   parallel);
 3. env.make_params on track_0019 at the library-default texture stride 2:
    the range texture is marched on the card;
-4. kernel phase: mega_edge_ttc (CUDA) against mega_edge_ttc_reference on
-   the card at K = 16384 envs x 2 agents, on operands made by the main
-   path's own prep from random free poses; p99 |diff| < 1e-3 m, < 0.2 % of
-   beams off by more than 4 texture cells, iTTC hits equal; median times;
-5. main path: rollout.batched_reset of 16384 x 2 cars at waypoint starts,
-   then make_rollout with random_policy and auto-reset; the kernel's launch
-   count must equal steps + reset steps; scans finite and in range;
-   env-steps/s and peak device memory.
+4. kernel phases at K = 16384 envs x 2 agents, each kernel against its
+   plain PyTorch twin on the card, with median CUDA-event times of both:
+   - mega_edge_ttc, plain, on operands made by the main path's own prep
+     from random free poses;
+   - mega_edge_ttc with opponents (slab noise), and with opponents and the
+     pool_rot resident pool (offset rows - 37), the second car of each env
+     placed within 2.5 m of the first; some beams must be shortened;
+   - the scan bar: p99 |diff| < 1e-3 m, < 0.2 % of beams off by more than
+     4 texture cells, iTTC hits equal;
+   - prestep (the pre-scan state kernel) on random in-range states and
+     actions: texture row, steer_cnt, i_f and inb exactly equal, float
+     outputs within 1e-6 (bit-exactness is reported);
+5. main paths, each rollout.batched_reset of 16384 x 2 cars at waypoint
+   starts, 10 warm-up steps, then timed make_rollout steps with
+   random_policy and auto-reset; every kernel's launch count (set to 0 just
+   before) must equal steps + reset steps where the path runs it and 0
+   elsewhere; scans finite and in range; env-steps/s and peak memory:
+   - default: prestep + megakernel with opponents, pool noise;
+   - pool_rot: the same with noise_mode="pool_rot";
+   - eager prestate: state_kernel="off", fuse_scan_opp="off" (the plain
+     megakernel and the eager chain around it).
+
+``--profile`` adds torch.profiler summaries (device kernels and device
+busy time per step) of the default and the eager path, and a table of the
+default path's kernels by device time.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
@@ -28,6 +46,7 @@ The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,6 +58,7 @@ STEPS, WARMUP_STEPS = 200, 10
 TRACK = "track_0019"
 TIMING_REPS = 20
 P99_TOL, FAR_FRAC_TOL = 1e-3, 2e-3   # the f32 bar of tests/test_scan_fast.py
+PRESTEP_TOL = 1e-6                   # prestep float outputs, kernel vs twin
 NOISE_MARGIN = 0.1                   # 10 sigma of the 1 cm scan noise
 
 
@@ -96,57 +116,174 @@ def random_free_poses(params, n: int, gen):
     return torch.stack([x, y, 2 * torch.pi * u[:, 2]], dim=-1)
 
 
-def kernel_phase(cfg, params, dev) -> dict:
+def close_poses(params, e_n: int, a_n: int, gen):
+    """(e_n, a_n, 3) poses: car 0 of each env in a random free cell, the
+    others within 2.5 m of it, random headings, so that cars see each other."""
     import torch
 
-    from red_gym_tpu_torch.ops import scan_fast, scan_kernels
+    base = random_free_poses(params, e_n, gen)
+    dev, dt = base.device, base.dtype
+    shift = 5.0 * torch.rand((e_n, a_n - 1, 2), generator=gen, device=dev, dtype=dt) - 2.5
+    head = 2 * torch.pi * torch.rand((e_n, a_n - 1, 1), generator=gen, device=dev, dtype=dt)
+    others = torch.cat([base[:, None, :2] + shift, head], dim=-1)
+    return torch.cat([base[:, None], others], dim=1)
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    poses = random_free_poses(params, ENVS * AGENTS, gen).reshape(ENVS, AGENTS, 3)
-    vel = -2.0 + 10.0 * torch.rand((ENVS, AGENTS), generator=gen, device=dev)
-    rows = torch.randint(0, cfg.noise_pool_rows, (ENVS,), generator=gen, device=dev)
-    noise = params.noise_pool[rows]
-    ops = scan_fast.mega_operands(poses, params.tables, params.tmap, params.rtex,
-                                  cfg, noise, vel)
-    if ops[-1] != torch.bfloat16:
-        fail(f"e/w taps resolved to {ops[-1]}, expected bfloat16 on CUDA")
-    out_k, hit_k = scan_kernels.mega_edge_ttc(*ops)
-    out_r, hit_r = scan_kernels.mega_edge_ttc_reference(*ops)
-    torch.cuda.synchronize()
+
+def random_states(params, shape, gen):
+    """In-range inputs of the state kernel for cars of ``shape``: x (..., 7)
+    at free poses, |v| < 0.5 for a fifth of them (the kinematic branch),
+    steer_buf (..., 2), steer_cnt (...) int32 in 0..2, actions (..., 2)."""
+    import torch
+
+    n = 1
+    for d in shape:
+        n *= d
+    poses = random_free_poses(params, n, gen)
+    dev, dt = poses.device, poses.dtype
+
+    def u(lo, hi, *extra):
+        return lo + (hi - lo) * torch.rand((n, *extra), generator=gen, device=dev, dtype=dt)
+
+    vel = torch.where(u(0, 1) < 0.2, u(-0.5, 0.5), u(-3.0, 10.0))
+    x = torch.stack([poses[:, 0], poses[:, 1], u(-0.4, 0.4), vel, poses[:, 2],
+                     u(-2.0, 2.0), u(-0.3, 0.3)], dim=-1)
+    cnt = torch.randint(0, 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+    act = torch.stack([u(-0.5, 0.5), u(-3.0, 10.0)], dim=-1)
+    return (x.reshape(*shape, 7), u(-0.4, 0.4, 2).reshape(*shape, 2),
+            cnt.reshape(shape), act.reshape(*shape, 2))
+
+
+def scan_bar(label: str, out_k, hit_k, out_r, hit_r, cell: float) -> float:
+    """The float32 scan bar of kernel against twin; returns max |diff|."""
+    import torch
+
     err = (out_k - out_r).abs()
-    cell = float(params.rtex.cell)
     flat = err.flatten().sort().values
     p99 = float(flat[int(0.99 * (flat.numel() - 1))])
     far = float((err > 4 * cell).float().mean())
     max_err = float(err.max())
     n_hits = int(hit_r.sum())
     hit_diff = int((hit_k != hit_r).sum())
-    say("kernel", f"K={ENVS * AGENTS} B={cfg.num_beams}: p99 |diff| {p99:.3e} m, "
-        f"max {max_err:.3e} m, {100 * far:.4f}% beams > 4 cells, "
+    say("kernel", f"{label}: K={out_k.shape[0]} B={out_k.shape[1]}: p99 |diff| "
+        f"{p99:.3e} m, max {max_err:.3e} m, {100 * far:.4f}% beams > 4 cells, "
         f"{n_hits} hit rows, {hit_diff} hit mismatches")
     if not torch.isfinite(out_k).all():
-        fail("kernel scan has non-finite values")
+        fail(f"{label}: kernel scan has non-finite values")
     if p99 >= P99_TOL or far >= FAR_FRAC_TOL:
-        fail(f"kernel disagrees with its plain twin (p99 {p99}, far {far})")
+        fail(f"{label}: kernel disagrees with its plain twin (p99 {p99}, far {far})")
     if hit_diff:
         bad = torch.nonzero(hit_k != hit_r).squeeze(1)[:5]
-        fail(f"{hit_diff} iTTC hit flags differ from the plain twin; rows "
+        fail(f"{label}: {hit_diff} iTTC hit flags differ from the plain twin; rows "
              f"{bad.tolist()} have max |diff| {err[bad].amax(dim=1).tolist()} m")
     if n_hits == 0:
-        fail("no iTTC hits in the kernel phase: the hit comparison is vacuous")
-    ms = median_ms(lambda: scan_kernels.mega_edge_ttc(*ops), TIMING_REPS)
-    plain_ms = median_ms(lambda: scan_kernels.mega_edge_ttc_reference(*ops),
-                         TIMING_REPS)
-    say("kernel", f"median of {TIMING_REPS}: CUDA kernel {ms:.3f} ms, "
+        fail(f"{label}: no iTTC hits: the hit comparison is vacuous")
+    return max_err
+
+
+def timed(label: str, kernel, plain) -> dict:
+    ms = median_ms(kernel, TIMING_REPS)
+    plain_ms = median_ms(plain, TIMING_REPS)
+    say("kernel", f"{label}: median of {TIMING_REPS}: CUDA kernel {ms:.3f} ms, "
         f"plain PyTorch twin {plain_ms:.3f} ms")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    return {"ms": ms, "plain_ms": plain_ms}
 
 
-def main_path(cfg, params, dev, profile: bool) -> int:
+def mega_phase(cfg, params, dev) -> dict:
+    """The megakernel's plain, opp and opp+pool_rot variants against the
+    twin; {variant: record fields}."""
+    import torch
+
+    from red_gym_tpu_torch.ops import agent_scan, collision, scan_fast, scan_kernels
+
+    cell = float(params.rtex.cell)
+    mega, ref = scan_kernels.mega_edge_ttc, scan_kernels.mega_edge_ttc_reference
+    gen = torch.Generator(device=dev).manual_seed(0)
+    poses = random_free_poses(params, ENVS * AGENTS, gen).reshape(ENVS, AGENTS, 3)
+    vel = -2.0 + 10.0 * torch.rand((ENVS, AGENTS), generator=gen, device=dev)
+    rows = torch.randint(0, cfg.noise_pool_rows, (ENVS,), generator=gen, device=dev)
+    ops = scan_fast.mega_operands(poses, params.tables, params.tmap, params.rtex,
+                                  cfg, params.noise_pool[rows], vel)
+    if ops["ew_dtype"] != torch.bfloat16:
+        fail(f"e/w taps resolved to {ops['ew_dtype']}, expected bfloat16 on CUDA")
+    out_k, hit_k = mega(**ops)
+    out_r, hit_r = ref(**ops)
+    torch.cuda.synchronize()
+    rec = {"plain": {"max_abs_err": scan_bar("plain", out_k, hit_k, out_r, hit_r, cell),
+                     **timed("plain", lambda: mega(**ops), lambda: ref(**ops))}}
+
+    poses = close_poses(params, ENVS, AGENTS, gen)
+    verts = collision.get_vertices(poses, params.vehicle.length, params.vehicle.width)
+    opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
+    pool_off = torch.tensor([cfg.noise_pool_rows - 37], dtype=torch.int32, device=dev)
+    for name, noise, off in (("opp", params.noise_pool[rows], None),
+                             ("opp+pool_rot", params.noise_pool, pool_off)):
+        ops = scan_fast.mega_operands(poses, params.tables, params.tmap, params.rtex,
+                                      cfg, noise, vel, opp=opp, pool_off=off)
+        out_k, hit_k = mega(**ops)
+        out_r, hit_r = ref(**ops)
+        base, _ = ref(**{**ops, "opp": None, "sines": None})
+        torch.cuda.synchronize()
+        err = scan_bar(name, out_k, hit_k, out_r, hit_r, cell)
+        shortened = int((out_k < base - 1e-6).sum())
+        say("kernel", f"{name}: {shortened} beams shortened by an opponent")
+        if shortened == 0:
+            fail(f"{name}: no beam shortened by an opponent")
+        rec[name] = {"max_abs_err": err,
+                     **timed(name, lambda: mega(**ops), lambda: ref(**ops))}
+    return rec
+
+
+def prestep_phase(cfg, params, dev) -> dict:
+    """The state kernel against its eager twin on random in-range states."""
+    import torch
+
+    from red_gym_tpu_torch.ops import state_kernels
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    args = random_states(params, (ENVS, AGENTS), gen)
+    got = state_kernels.prestep(cfg, params, *args)
+    want = state_kernels.prestep_reference(cfg, params, *args)
+    torch.cuda.synchronize()
+    names = ("x", "steer_buf", "steer_cnt", "rows", "scal")
+    exact = {n: bool(torch.equal(g, w)) for n, g, w in zip(names, got, want)}
+    max_err = max(float((g.float() - w.float()).abs().max())
+                  for n, g, w in zip(names, got, want))
+    ints = dict(rows=(got[3], want[3]), steer_cnt=(got[2], want[2]),
+                i_f=(got[4][..., 3], want[4][..., 3]), inb=(got[4][..., 4], want[4][..., 4]))
+    n_diff = {n: int((g != w).sum()) for n, (g, w) in ints.items()}
+    say("kernel", f"prestep: K={ENVS * AGENTS}: max |diff| {max_err:.3e}; bit-exact "
+        f"{exact}; integer mismatches {n_diff}")
+    if any(n_diff.values()):
+        fail(f"prestep: integer outputs differ from the twin: {n_diff}")
+    if not max_err <= PRESTEP_TOL:
+        fail(f"prestep: float outputs differ from the twin by {max_err}")
+    return {"max_abs_err": max_err,
+            **timed("prestep", lambda: state_kernels.prestep(cfg, params, *args),
+                    lambda: state_kernels.prestep_reference(cfg, params, *args))}
+
+
+def launch_counts() -> dict:
+    from red_gym_tpu_torch.ops import scan_kernels, state_kernels
+
+    return {**{f"mega_edge_ttc[{k}]": v
+               for k, v in scan_kernels.mega_edge_ttc.launches.items()},
+            "prestep": state_kernels.prestep.launches}
+
+
+def reset_launch_counts() -> None:
+    from red_gym_tpu_torch.ops import scan_kernels, state_kernels
+
+    scan_kernels.reset_launches()
+    state_kernels.prestep.launches = 0
+
+
+def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
+              profile: bool) -> dict:
+    """Drive one path; ``uses`` names the launch counters it must advance
+    (once per step and reset step); every other counter must stay 0."""
     import torch
 
     from red_gym_tpu_torch import assets, rollout
-    from red_gym_tpu_torch.ops import scan_kernels
 
     start = torch.as_tensor(assets.waypoint_start_poses(TRACK, AGENTS),
                             dtype=cfg.tdtype, device=dev)
@@ -157,65 +294,77 @@ def main_path(cfg, params, dev, profile: bool) -> int:
     carry = rollout.RolloutCarry(state, obs)
     carry, _ = rollout.make_rollout(cfg, params, policy, WARMUP_STEPS)(carry, gen)
     if profile:
-        profile_steps(cfg, params, policy, carry, gen)
-    run = rollout.make_rollout(cfg, params, policy, STEPS)
+        profile_steps(label, cfg, params, policy, carry, gen, table=label == "default")
+    run = rollout.make_rollout(cfg, params, policy, steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    scan_kernels.mega_edge_ttc.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     carry, outs = run(carry, gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = scan_kernels.mega_edge_ttc.launches
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     resets = outs["resets"]
     n_done = int(outs["done"].sum())
-    say("main", f"{STEPS} steps of {ENVS} envs x {AGENTS} agents x "
+    say(f"main:{label}", f"{steps} steps of {ENVS} envs x {AGENTS} agents x "
         f"{cfg.num_beams} beams in {seconds:.3f} s: "
-        f"{ENVS * STEPS / seconds:.0f} env-steps/s "
-        f"({1e3 * seconds / STEPS:.3f} ms/step incl. auto-reset), "
+        f"{ENVS * steps / seconds:.0f} env-steps/s "
+        f"({1e3 * seconds / steps:.3f} ms/step incl. auto-reset), "
         f"peak device memory {peak / 2**30:.2f} GiB")
-    say("main", f"{n_done} env episodes ended; {resets} of {STEPS} steps "
-        f"reset some env; mega_edge_ttc launches {launches}")
-    if launches != STEPS + resets:
-        fail(f"mega_edge_ttc launched {launches} times, expected "
-             f"{STEPS} steps + {resets} resets")
+    say(f"main:{label}", f"{n_done} env episodes ended; {resets} of {steps} steps "
+        f"reset some env; launches {counts}")
+    for name, n in counts.items():
+        want = steps + resets if name in uses else 0
+        if n != want:
+            fail(f"{label}: {name} launched {n} times, expected {want} "
+                 f"({steps} steps + {resets} resets)" if want else
+                 f"{label}: {name} launched {n} times on a path that does not run it")
     scans = carry.obs.scans
     if not torch.isfinite(scans).all():
-        fail("non-finite scans")
+        fail(f"{label}: non-finite scans")
     lo, hi = float(scans.min()), float(scans.max())
     if lo < -NOISE_MARGIN or hi > cfg.max_range + NOISE_MARGIN:
-        fail(f"scans outside [-{NOISE_MARGIN}, max_range + {NOISE_MARGIN}]: "
+        fail(f"{label}: scans outside [-{NOISE_MARGIN}, max_range + {NOISE_MARGIN}]: "
              f"[{lo}, {hi}]")
     far_beams = float((scans > 0.5).float().mean())
-    say("main", f"scans in [{lo:.3f}, {hi:.3f}] m, mean {float(scans.mean()):.3f} m, "
-        f"{100 * far_beams:.1f}% of beams beyond 0.5 m")
+    say(f"main:{label}", f"scans in [{lo:.3f}, {hi:.3f}] m, mean "
+        f"{float(scans.mean()):.3f} m, {100 * far_beams:.1f}% of beams beyond 0.5 m")
     if far_beams < 0.5:
-        fail("most beams read under 0.5 m: degenerate scans")
-    return launches
+        fail(f"{label}: most beams read under 0.5 m: degenerate scans")
+    return counts
 
 
-def profile_steps(cfg, params, policy, carry, gen) -> None:
-    """Kernel time by name over a few main-path steps (torch.profiler)."""
+def profile_steps(label, cfg, params, policy, carry, gen, table: bool) -> None:
+    """Device kernels and device busy time per step over 5 steps
+    (torch.profiler), and with ``table`` the kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from red_gym_tpu_torch import rollout
 
-    run = rollout.make_rollout(cfg, params, policy, 5)
+    n = 5
+    run = rollout.make_rollout(cfg, params, policy, n)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(carry, gen)
+        _, outs = run(carry, gen)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-    for line in table.splitlines():
-        print(f"[profile] {line}", flush=True)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    say(f"profile:{label}", f"{n} steps ({outs['resets']} reset steps): "
+        f"{len(dev_events)} device ops ({len(dev_events) / n:.0f} per step), "
+        f"device busy {busy_ms:.2f} ms ({busy_ms / n:.2f} ms per step)")
+    if table:
+        for line in prof.key_averages().table(sort_by="cuda_time_total",
+                                              row_limit=25).splitlines():
+            print(f"[profile] {line}", flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also print a torch.profiler table of 5 main-path steps")
+                    help="also profile 5 steps of the default and the eager path")
     args = ap.parse_args()
     try:
         import torch
@@ -240,12 +389,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    for name in _build.kernel_names():
-        lib = _build.build(name)
+    libs = _build.build_all()
+    for name, lib in libs.items():
         with open(lib + ".log") as f:
             report = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
         say("build", f"{name} -> {os.path.relpath(lib)}; " + " | ".join(report))
-    say("build", f"nvcc build of {len(_build.kernel_names())} kernel(s): "
+    say("build", f"nvcc build of {len(libs)} kernel(s), in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
 
     # a cold texture build every run: its time is one of the reported numbers
@@ -260,14 +409,34 @@ def main() -> None:
         f"({rt.numel() * rt.element_size() / 1e6:.0f} MB); make_params (map, "
         f"EDT, texture marched on the card) {time.perf_counter() - t0:.1f} s")
 
-    kern = kernel_phase(cfg, params, dev)
-    launches = main_path(cfg, params, dev, args.profile)
+    mega = mega_phase(cfg, params, dev)
+    pre = prestep_phase(cfg, params, dev)
 
-    record = {"name": "mega_edge_ttc", "route": "cuda",
-              "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
-              "replaces": "red_gym_tpu/ops/pallas_scan.py:1027",
-              "launches": launches, **kern}
-    print(json.dumps({"kernels": [record]}), flush=True)
+    # one params serve all three configs: they differ in noise_mode (the
+    # pool is built for "pool" and "pool_rot" alike) and the kernel knobs
+    default = main_path("default", cfg, params, dev, STEPS,
+                        ("mega_edge_ttc[opp]", "prestep"), args.profile)
+    rot = main_path("pool_rot", dataclasses.replace(cfg, noise_mode="pool_rot"),
+                    params, dev, STEPS, ("mega_edge_ttc[opp+pool_rot]", "prestep"),
+                    False)
+    eager = main_path("eager", dataclasses.replace(cfg, state_kernel="off",
+                                                   fuse_scan_opp="off"),
+                      params, dev, STEPS, ("mega_edge_ttc[plain]",), args.profile)
+
+    mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
+                "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}
+    records = [
+        {"name": "mega_edge_ttc", **mega_src,
+         "launches": eager["mega_edge_ttc[plain]"], **mega["plain"]},
+        {"name": "mega_edge_ttc+opp", **mega_src,
+         "launches": default["mega_edge_ttc[opp]"], **mega["opp"]},
+        {"name": "mega_edge_ttc+opp+pool_rot", **mega_src,
+         "launches": rot["mega_edge_ttc[opp+pool_rot]"], **mega["opp+pool_rot"]},
+        {"name": "prestep", "route": "cuda", "source": "red_gym_tpu_torch/csrc/prestep.cu",
+         "replaces": "red_gym_tpu/ops/pallas_state.py:134",
+         "launches": default["prestep"], **pre},
+    ]
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),
           flush=True)

@@ -6,7 +6,11 @@ same thing here.  The JAX-only knobs (``scan_backend``, ``fuse_scan_ttc``,
 ``fuse_scan_opp``, ``scan_megakernel``, ``state_kernel``) keep their values
 and checks, but nothing here resolves "auto" from a capability record: on a
 CUDA device an in-scope config always runs the hand-written kernels, on a
-CPU device always their plain PyTorch twins (see ``ops/scan_fast.py``).
+CPU device always their plain PyTorch twins (see ``env.py``,
+``ops/scan_fast.py``).  So the default config runs the state kernel and the
+megakernel with the opponent cast; ``state_kernel="off"`` and
+``fuse_scan_opp="off"`` select the eager pre-scan chain and the separate
+opponent pass.
 """
 
 from __future__ import annotations
@@ -118,7 +122,9 @@ class SimConfig:
     scan_noise_std: float = 0.01
     ttc_thresh: float = 0.005
     # "pool": one row of a pregenerated N(0, sigma) pool per env per step;
-    # "fresh": one fresh draw per env per step; "pool_rot": not ported yet
+    # "fresh": one fresh draw per env per step; "pool_rot": the same pool,
+    # env g of a step call reading row (g + off) % rows for one drawn
+    # offset, read by the megakernel from the resident pool
     noise_mode: str = "pool"
     noise_pool_rows: int = 1024
     steer_delay: int = 2

@@ -1,15 +1,19 @@
-// Scan megakernel for Hopper (sm_90a): texture rows -> noisy scan + iTTC.
+// Scan megakernel for Hopper (sm_90a): texture rows -> noisy scan + iTTC,
+// optionally with the opponent ray cast and a resident noise pool.
 //
-// Replaces red_gym_tpu/ops/pallas_scan.py::mega_edge_ttc (_mega_kernel),
-// plain variant.  The math, row by row, and what bounds it on the H100 are
-// set out in red_gym_tpu_torch/ops/scan_kernels.py, whose
+// Replaces red_gym_tpu/ops/pallas_scan.py::mega_edge_ttc (_mega_kernel) in
+// all four of its variants: plain, opponents (n_opp > 0, the TPU kernel's
+// _opp_raycast_tile), resident pool (pool_rows > 0, noise_mode="pool_rot"),
+// and both.  The math, row by row, and what bounds it on the H100 are set
+// out in red_gym_tpu_torch/ops/scan_kernels.py, whose
 // mega_edge_ttc_reference is the plain PyTorch version of this kernel.
 //
 // One block of THREADS threads handles ROWS consecutive rows (cars):
 //   phase 1  each (row, bin) item reads its texture row directly (the gather
 //            lives here), applies the gradient fold and the corner-bearing
 //            parallax, and stages the three corrected channels in shared
-//            memory;
+//            memory; the rows' opponent packs (10 floats per opponent) are
+//            staged in dynamic shared memory;
 //   phase 2  thread (j, half) forms spectral lane j of the packed rfft for
 //            half of the rows (summed in float64), then the integer-roll
 //            twiddle; the T/2 column rotation of fmat_sw is the lane index
@@ -17,12 +21,18 @@
 //   phase 3  each thread owns beams b, b + THREADS, ...: seven tap sums over
 //            the 128 lanes for all ROWS rows (float4 shared-memory
 //            broadcasts, gmat columns from L2), then the edge-ramp render,
-//            mask, clip, noise add and iTTC test; a row's hit is the OR
-//            over its beams.
+//            mask, clip, noise add and iTTC test (a row's hit is the OR over
+//            its beams), then the slab test against each opponent inside its
+//            blocked beam window [lo, hi].
+// Noise: env g = k / agents_per_env reads row g of an (E, B) slab, or, with
+// pool_rows > 0, row (g + (*pool_off & ~15)) % pool_rows of the resident
+// (pool_rows, B) pool (2.2 MB at 1024 x 1080 in bf16, held in L2).  The
+// offset is read on the device, so the host never waits for it.
 // No tensor cores: the taps are float32 FMAs, so no TF32 rounding.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <stddef.h>
 
@@ -37,6 +47,7 @@ constexpr float TWO_PI = 6.283185307179586f;
 constexpr float DTH = TWO_PI / T;  // exact: division by a power of two
 constexpr float INV_TWO_PI = (float)(1.0 / 6.283185307179586);
 constexpr float INV_DTH = (float)(T / 6.283185307179586);
+constexpr int OPP_PACK = 10;  // [lo, hi, a_u, b_u, a_w, b_w, o_u, o_w, hu, hw]
 
 static_assert(THREADS == 2 * T, "phase 2 maps two threads to each lane");
 static_assert(ROWS % 2 == 0, "phase 2 splits the rows in halves");
@@ -54,6 +65,47 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+// torch.minimum / torch.maximum: NaN-propagating, unlike fminf / fmaxf
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// One slab of the ray-vs-box test (agent_scan._slab): entry and exit ray
+// parameters; a beam parallel to the slab is inside it everywhere or never.
+// Each operation is rounded on its own, as the plain twin's PyTorch code
+// rounds it; 1/d is a correctly rounded reciprocal, as torch's.
+__device__ __forceinline__ void slab_axis(float o, float d, float h, float& nr,
+                                          float& fr) {
+  const float inv = __frcp_rn(d);
+  const float t1 = __fmul_rn(__fsub_rn(-h, o), inv);
+  const float t2 = __fmul_rn(__fsub_rn(h, o), inv);
+  nr = nan_min(t1, t2);
+  fr = nan_max(t1, t2);
+  if (d == 0.f) {
+    const bool inside = fabsf(o) <= h;
+    nr = inside ? -CUDART_INF_F : CUDART_INF_F;
+    fr = inside ? CUDART_INF_F : -CUDART_INF_F;
+  }
+}
+
+// Ray parameter at which beam (cos_b, sin_b) meets the opponent box of pack
+// p, or +inf (the in-kernel form of agent_scan.ray_cast_opponent).
+__device__ __forceinline__ float opp_hit(const float* p, float cb, float sb) {
+  const float d_u = __fadd_rn(__fmul_rn(p[2], cb), __fmul_rn(p[3], sb));
+  const float d_w = __fadd_rn(__fmul_rn(p[4], cb), __fmul_rn(p[5], sb));
+  float near_u, far_u, near_w, far_w;
+  slab_axis(p[6], d_u, p[8], near_u, far_u);
+  slab_axis(p[7], d_w, p[9], near_w, far_w);
+  const float tmin = nan_max(near_u, near_w);
+  const float tmax = nan_min(far_u, far_w);
+  const bool hit = tmax >= tmin && tmax >= 0.f;
+  const float t = tmin >= 0.f ? tmin : tmax;  // from inside: exit distance
+  return hit ? t : CUDART_INF_F;
+}
+
 template <typename TexT, typename NoiseT>
 __global__ void __launch_bounds__(THREADS)
 mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
@@ -62,7 +114,10 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
                      const NoiseT* __restrict__ noise, const float* __restrict__ cosv,
                      const float* __restrict__ side, float* __restrict__ out,
                      float* __restrict__ hit, int K, int B, int agents_per_env,
-                     float max_range, float ttc_thresh, int ew_bf16) {
+                     float max_range, float ttc_thresh, int ew_bf16,
+                     const float* __restrict__ sinv, const float* __restrict__ opp,
+                     int n_opp, const int* __restrict__ pool_off, int pool_rows) {
+  extern __shared__ float row_opp[];               // [ROWS][n_opp][OPP_PACK]
   __shared__ __align__(16) float xs[ROWS][3][T];  // corrected range, e, w
   __shared__ __align__(16) float ss[ROWS][3][T];  // rolled packed spectra
   __shared__ float row_fs[ROWS], row_wsum[ROWS], row_vel[ROWS];
@@ -106,6 +161,11 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
     xs[r][0][t] = v_r;
     xs[r][1][t] = v_e;
     xs[r][2][t] = v_w;
+  }
+  const int pack = OPP_PACK * n_opp;
+  for (int it = tid; it < ROWS * pack; it += THREADS) {
+    const int k = row0 + it / pack;
+    row_opp[it] = k < K ? opp[(size_t)k * pack + it % pack] : 0.f;
   }
   if (tid < ROWS) {
     const int k = row0 + tid;
@@ -183,8 +243,9 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
   }
   __syncthreads();
 
-  // ---- phase 3: taps, edge-ramp render, noise, iTTC ------------------------
+  // ---- phase 3: taps, edge-ramp render, noise, iTTC, opponents -------------
   const size_t ld = 3 * (size_t)B;
+  const int off = pool_rows > 0 ? (*pool_off & ~15) : 0;
   for (int b = tid; b < B; b += THREADS) {
     float acc[ROWS][7];
 #pragma unroll
@@ -223,6 +284,7 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
       }
     }
     const float cf = c_frac[b], cb = cosv[b], sd = side[b];
+    const float sb = n_opp > 0 ? sinv[b] : 0.f;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int k = row0 + r;
@@ -238,13 +300,22 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
       float o = ga + aa * (gb - ga);
       o = row_wsum[r] > 0.f ? o : 0.f;
       o = clampf(o, 0.f, max_range);
-      o += load_f(noise, (size_t)(k / agents_per_env) * B + b);
-      out[(size_t)k * B + b] = o;
+      const int g = k / agents_per_env;
+      const size_t nrow = pool_rows > 0 ? (size_t)((g + off) % pool_rows) : (size_t)g;
+      o += load_f(noise, nrow * B + b);
       const float pv = row_vel[r] * cb;
       const float num = o - sd;
       if ((pv > 0.f && num >= 0.f && num < ttc_thresh * pv) ||
           (pv < 0.f && num <= 0.f && num > ttc_thresh * pv))
         row_hit[r] = 1;
+      // opponents shorten the noisy scan after the iTTC test, as the TPU
+      // kernel orders it: the wall hit flags come from the pre-opponent scan
+      const float bpos = (float)b;
+      for (int q = 0; q < n_opp; ++q) {
+        const float* p = &row_opp[(r * n_opp + q) * OPP_PACK];
+        if (bpos >= p[0] && bpos <= p[1]) o = nan_min(o, opp_hit(p, cb, sb));
+      }
+      out[(size_t)k * B + b] = o;
     }
   }
   __syncthreads();
@@ -252,50 +323,60 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
 }
 
 template <typename TexT, typename NoiseT>
-void launch(const void* rt, const void* rows, const void* scal, const void* fmat,
-            const void* gmat, const void* c_frac, const void* noise, const void* cosv,
-            const void* side, void* out, void* hit, int K, int B, int agents_per_env,
-            float max_range, float ttc_thresh, int ew_bf16, cudaStream_t stream) {
+int launch(const void* rt, const void* rows, const void* scal, const void* fmat,
+           const void* gmat, const void* c_frac, const void* noise, const void* cosv,
+           const void* side, void* out, void* hit, int K, int B, int agents_per_env,
+           float max_range, float ttc_thresh, int ew_bf16, const void* sinv,
+           const void* opp, int n_opp, const void* pool_off, int pool_rows,
+           cudaStream_t stream) {
   const dim3 grid((K + ROWS - 1) / ROWS), block(THREADS);
-  mega_edge_ttc_kernel<TexT, NoiseT><<<grid, block, 0, stream>>>(
+  const size_t smem = sizeof(float) * ROWS * OPP_PACK * (size_t)n_opp;
+  auto kernel = mega_edge_ttc_kernel<TexT, NoiseT>;
+  if (smem > 0) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so that it is not reported again later
+      return static_cast<int>(err);
+    }
+  }
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const TexT*>(rt), static_cast<const int*>(rows),
       static_cast<const float*>(scal), static_cast<const float*>(fmat),
       static_cast<const float*>(gmat), static_cast<const float*>(c_frac),
       static_cast<const NoiseT*>(noise), static_cast<const float*>(cosv),
       static_cast<const float*>(side), static_cast<float*>(out),
-      static_cast<float*>(hit), K, B, agents_per_env, max_range, ttc_thresh, ew_bf16);
+      static_cast<float*>(hit), K, B, agents_per_env, max_range, ttc_thresh, ew_bf16,
+      static_cast<const float*>(sinv), static_cast<const float*>(opp), n_opp,
+      static_cast<const int*>(pool_off), pool_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes.  Every pointer is a device pointer; scal
-// is (K, 8) float32 [dx, dy, f_s, i_f, inb, vel, 0, 0]; rt is (N, 5*128)
-// bf16 (rt_bf16) or float32; noise is (K / agents_per_env, B) bf16
-// (noise_bf16) or float32.  Launches on `stream` and returns
-// cudaGetLastError(): non-zero means the launch did not happen.
+// is (K, 8) float32 [dx, dy, f_s, i_f, inb, vel, -, -]; rt is (N, 5*128)
+// bf16 (rt_bf16) or float32; noise is bf16 (noise_bf16) or float32, either
+// (K / agents_per_env, B) or, with pool_rows > 0, the (pool_rows, B) pool
+// with pool_off a 1-element int32.  With n_opp > 0, sinv is (B,) float32 and
+// opp is (K, 10 * n_opp) float32.  Launches on `stream` and returns the CUDA
+// error: non-zero means the launch did not happen.
 extern "C" int mega_edge_ttc_launch(const void* rt, int rt_bf16, const void* rows,
                                     const void* scal, const void* fmat, const void* gmat,
                                     const void* c_frac, const void* noise, int noise_bf16,
                                     const void* cosv, const void* side, void* out,
                                     void* hit, int K, int B, int agents_per_env,
                                     float max_range, float ttc_thresh, int ew_bf16,
-                                    void* stream) {
+                                    const void* sinv, const void* opp, int n_opp,
+                                    const void* pool_off, int pool_rows, void* stream) {
   if (K <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rt_bf16 && noise_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(rt, rows, scal, fmat, gmat, c_frac, noise, cosv,
-                                         side, out, hit, K, B, agents_per_env, max_range,
-                                         ttc_thresh, ew_bf16, s);
-  else if (rt_bf16)
-    launch<__nv_bfloat16, float>(rt, rows, scal, fmat, gmat, c_frac, noise, cosv, side,
-                                 out, hit, K, B, agents_per_env, max_range, ttc_thresh,
-                                 ew_bf16, s);
-  else if (noise_bf16)
-    launch<float, __nv_bfloat16>(rt, rows, scal, fmat, gmat, c_frac, noise, cosv, side,
-                                 out, hit, K, B, agents_per_env, max_range, ttc_thresh,
-                                 ew_bf16, s);
-  else
-    launch<float, float>(rt, rows, scal, fmat, gmat, c_frac, noise, cosv, side, out, hit,
-                         K, B, agents_per_env, max_range, ttc_thresh, ew_bf16, s);
-  return static_cast<int>(cudaGetLastError());
+#define MEGA_ARGS                                                                   \
+  rt, rows, scal, fmat, gmat, c_frac, noise, cosv, side, out, hit, K, B, agents_per_env, \
+      max_range, ttc_thresh, ew_bf16, sinv, opp, n_opp, pool_off, pool_rows, s
+  if (rt_bf16 && noise_bf16) return launch<__nv_bfloat16, __nv_bfloat16>(MEGA_ARGS);
+  if (rt_bf16) return launch<__nv_bfloat16, float>(MEGA_ARGS);
+  if (noise_bf16) return launch<float, __nv_bfloat16>(MEGA_ARGS);
+  return launch<float, float>(MEGA_ARGS);
+#undef MEGA_ARGS
 }

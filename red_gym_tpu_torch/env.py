@@ -13,6 +13,15 @@ casting -> time/lap/done.  Randomness comes only from the
 ``torch.Generator`` passed in: one noise row per env per step, shared by
 the env's agents (the reference's identical-seed-per-car quirk,
 base_classes.py:117,202).
+
+The step runs on three hand-written kernels where the config is in their
+scope: the pre-scan state kernel (``cfg.state_kernel``,
+``ops/state_kernels.py``), and the scan megakernel with the opponent ray
+cast in it (``cfg.fuse_scan_opp``) and, under ``noise_mode="pool_rot"``,
+its resident noise pool (``ops/scan_kernels.py``).  "auto" resolves by
+scope alone: an in-scope config runs the kernels on a CUDA device and their
+plain PyTorch twins on the CPU; out of scope, "auto" takes the eager chain
+and "on" raises ValueError.
 """
 
 from __future__ import annotations
@@ -24,8 +33,8 @@ import torch
 
 from red_gym_tpu_torch.config import Integrator, SimConfig, VehicleParams
 from red_gym_tpu_torch.maps.loader import TrackMap, load_map
-from red_gym_tpu_torch.ops import agent_scan, collision as col, dynamics as dyn
-from red_gym_tpu_torch.ops import integrate, scan as scan_ops, scan_fast
+from red_gym_tpu_torch.ops import agent_scan, collision as col
+from red_gym_tpu_torch.ops import scan as scan_ops, scan_fast, state_kernels
 
 _NOISE_POOL_SEED = 0x5EED
 
@@ -37,7 +46,10 @@ class EnvParams(NamedTuple):
     tables: scan_ops.ScanTables
     tmap: TrackMap
     rtex: Optional[scan_fast.RangeTexture] = None
-    noise_pool: Optional[torch.Tensor] = None  # (rows, B) for noise_mode="pool"
+    noise_pool: Optional[torch.Tensor] = None  # (rows, B): noise_mode "pool"/"pool_rot"
+    # (32,) vehicle + geometry scalars of the state kernel
+    # (state_kernels.pack_params); rebuild it after replacing vehicle/tmap/rtex
+    state_pack: Optional[torch.Tensor] = None
 
 
 class EnvState(NamedTuple):
@@ -91,15 +103,16 @@ def make_params(cfg: SimConfig, map_yaml_path: str, map_ext: str = ".png",
         dtype=cfg.tdtype, device=device)
     rtex = scan_fast.build_range_texture(tmap, cfg)
     return EnvParams(vehicle=vehicle, tables=tables, tmap=tmap, rtex=rtex,
-                     noise_pool=_make_noise_pool(cfg, device))
+                     noise_pool=_make_noise_pool(cfg, device),
+                     state_pack=state_kernels.pack_params(vehicle, tmap, rtex))
 
 
 def _make_noise_pool(cfg: SimConfig, device):
-    """Pregenerated N(0, sigma) beam rows for noise_mode="pool", drawn from
-    a fixed-seed generator (a run's randomness is the row pick).  Stored
-    in bfloat16 in float32 runs: a bf16 ulp of a 1 cm perturbation is
-    ~0.02 mm; compute upcasts on read."""
-    if cfg.noise_mode != "pool" or cfg.scan_noise_std <= 0:
+    """Pregenerated N(0, sigma) beam rows for noise_mode "pool" and
+    "pool_rot", drawn from a fixed-seed generator (a run's randomness is
+    the row pick).  Stored in bfloat16 in float32 runs: a bf16 ulp of a
+    1 cm perturbation is ~0.02 mm; compute upcasts on read."""
+    if cfg.noise_mode not in ("pool", "pool_rot") or cfg.scan_noise_std <= 0:
         return None
     gen = torch.Generator(device=device).manual_seed(_NOISE_POOL_SEED)
     pool = cfg.scan_noise_std * torch.randn(
@@ -134,30 +147,44 @@ def init_state(cfg: SimConfig, poses) -> EnvState:
         step_idx=zeros(torch.int32))
 
 
-def _steer_delay(cfg: SimConfig, state: EnvState, raw_steer):
-    """Steering delay line (base_classes.py:268-276): the first
-    ``steer_delay`` steps see zero steer, afterwards the oldest value."""
-    d = cfg.steer_delay
-    filled = state.steer_cnt >= d
-    steer = torch.where(filled, state.steer_buf[..., d - 1],
-                        torch.zeros_like(raw_steer))
-    new_buf = torch.cat([raw_steer[..., None], state.steer_buf[..., : d - 1]], dim=-1)
-    new_cnt = torch.clamp(state.steer_cnt + 1, max=d)
-    return steer, new_buf, new_cnt
+def use_state_kernel(cfg: SimConfig, params: EnvParams) -> bool:
+    """Resolution of cfg.state_kernel: "off" never, "auto" iff the config
+    and params are in the kernel's scope (state_kernels.supported), "on"
+    always, raising ValueError out of scope."""
+    if cfg.state_kernel == "off":
+        return False
+    if state_kernels.supported(cfg, params):
+        return True
+    if cfg.state_kernel == "on":
+        raise ValueError(
+            "state_kernel='on' needs the kernel's scope: scan_mode='fast', "
+            "rt_spatial='nearest1', dtype='float32', steer_delay=2, the "
+            "default PID and scalar vehicle params (state_kernels.supported)")
+    return False
 
 
 def _noise_rows(cfg: SimConfig, params: EnvParams, e_n: int, gen):
-    """One noise row per env for this step, (E, B): a row of the pool
-    (bfloat16 storage, read by the kernel as is) or a fresh draw."""
+    """This step's noise operand of the megakernel -> (noise, pool_off):
+    one row per env (E, B), a row of the pool (bfloat16 storage, read by
+    the kernel as is) or a fresh draw, with pool_off None; or under
+    "pool_rot" the whole (rows, B) pool and one draw pool_off (1,) int32
+    on the device: env g reads pool row (g + (pool_off & ~15)) % rows
+    (scan_kernels.pool_rot_rows), the counterpart of the JAX package's
+    env-0 draw."""
     device = params.tables.beam_cosines.device
     if cfg.scan_noise_std <= 0:
-        return torch.zeros((e_n, cfg.num_beams), dtype=cfg.tdtype, device=device)
+        return torch.zeros((e_n, cfg.num_beams), dtype=cfg.tdtype,
+                           device=device), None
+    if cfg.noise_mode == "pool_rot":
+        off = torch.randint(0, cfg.noise_pool_rows, (1,), generator=gen,
+                            device=device, dtype=torch.int32)
+        return params.noise_pool, off
     if cfg.noise_mode == "pool":
         r = torch.randint(0, cfg.noise_pool_rows, (e_n,), generator=gen,
                           device=device)
-        return params.noise_pool[r]
+        return params.noise_pool[r], None
     return cfg.scan_noise_std * torch.randn(
-        (e_n, cfg.num_beams), generator=gen, dtype=cfg.tdtype, device=device)
+        (e_n, cfg.num_beams), generator=gen, dtype=cfg.tdtype, device=device), None
 
 
 def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
@@ -165,25 +192,31 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     env.  actions (E, A, 2) = [desired steer, desired speed]."""
     p = params.vehicle
     actions = torch.as_tensor(actions, dtype=cfg.tdtype)
-    raw_steer, vel_cmd = actions[..., 0], actions[..., 1]
 
-    steer, steer_buf, steer_cnt = _steer_delay(cfg, state, raw_steer)
-    controller = cfg.speed_controller or dyn.pid
-    accl, sv = controller(vel_cmd, steer, state.x[..., 3], state.x[..., 2],
-                          p.sv_max, p.a_max, p.v_max, p.v_min)
-    xt = tuple(state.x[..., i] for i in range(7))
-    xt = integrate.integrate_t(cfg.integrator, dyn.vehicle_dynamics_st_t,
-                               xt, sv, accl, cfg.timestep, p)
-    xt = xt[:4] + (integrate.wrap_yaw(xt[4]),) + xt[5:]
-    x = torch.stack(xt, dim=-1)
-    poses = torch.stack([xt[0], xt[1], xt[4]], dim=-1)
+    pregeo = None
+    if use_state_kernel(cfg, params):
+        # one launch for steer delay, PID, integration, yaw wrap and the
+        # megakernel's per-row operands
+        x, steer_buf, steer_cnt, rows, scal = state_kernels.prestep(
+            cfg, params, state.x, state.steer_buf, state.steer_cnt, actions)
+        pregeo = (rows, scal)
+    else:
+        x, steer_buf, steer_cnt = state_kernels.dynamics_chain(
+            cfg, p, state.x, state.steer_buf, state.steer_cnt, actions)
+    poses = x[..., [0, 1, 4]]
+    vel = x[..., 3]
 
-    # lidar: noisy scan + wall iTTC from the scan megakernel
-    noise = _noise_rows(cfg, params, x.shape[0], gen)
+    # lidar: noisy scan + wall iTTC (+ the opponent ray cast) from the scan
+    # megakernel
+    noise, pool_off = _noise_rows(cfg, params, x.shape[0], gen)
+    verts = col.get_vertices(poses, p.length, p.width)
+    opp = None
+    if scan_fast.use_fused_opp_mega(cfg):
+        opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
     scans, hit01 = scan_fast.trace_fast_mxu(
         poses, params.tables, params.tmap, params.rtex, cfg,
-        fused_ttc=(noise, xt[3]))
-    ttc_hit = (hit01 > 0) & (xt[3] != 0.0)
+        fused_ttc=(noise, vel), opp=opp, pool_off=pool_off, pregeo=pregeo)
+    ttc_hit = (hit01 > 0) & (vel != 0.0)
 
     # pairwise body collision (base_classes.py:529-543)
     body_hits = col.pairwise_hits_from_poses(poses, p.length, p.width).to(x.dtype)
@@ -192,9 +225,10 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     freeze = ttc_hit[..., None] & (torch.arange(7, device=x.device) >= 3)
     x = torch.where(freeze, torch.zeros_like(x), x)
 
-    # opponent ray casting on the noisy scans (base_classes.py:204-225)
-    verts = col.get_vertices(poses, p.length, p.width)
-    scans = agent_scan.ray_cast_all_opponents(poses, scans, verts, params.tables)
+    # opponent ray casting on the noisy scans (base_classes.py:204-225),
+    # unless the megakernel already did it
+    if opp is None:
+        scans = agent_scan.ray_cast_all_opponents(poses, scans, verts, params.tables)
 
     collisions = torch.maximum(body_hits, ttc_hit.to(body_hits.dtype))
     new_state = state._replace(x=x, steer_buf=steer_buf, steer_cnt=steer_cnt,

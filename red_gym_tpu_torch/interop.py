@@ -17,16 +17,15 @@ import torch
 from red_gym_tpu_torch.config import SimConfig, VehicleParams
 from red_gym_tpu_torch.env import EnvParams, EnvState
 from red_gym_tpu_torch.maps.loader import TrackMap
-from red_gym_tpu_torch.ops import scan as scan_ops, scan_fast
+from red_gym_tpu_torch.ops import scan as scan_ops, scan_fast, state_kernels
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
     """numpy array (incl. ml_dtypes bfloat16) -> tensor with the same values."""
-    a = np.asarray(a)
+    a = np.array(a, order="C")   # a C-ordered copy that keeps 0-d arrays 0-d
     if a.dtype.name == "bfloat16":
-        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
-        return bits.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(cfg: SimConfig, vehicle: Mapping, tables: Mapping,
@@ -36,20 +35,27 @@ def params_from_numpy(cfg: SimConfig, vehicle: Mapping, tables: Mapping,
     """EnvParams from the numpy leaves of JAX ``EnvParams`` fields.
 
     ``rtex`` needs rt, valid, hc, wc, cell, fmat, gmat and smat; the port's
-    per-step constants (fmat_sw, shift1, c_frac) are derived here."""
+    per-step constants (fmat_sw, shift1, c_frac) and the state kernel's
+    scalar pack are derived here.  ``noise_pool`` serves noise_mode "pool"
+    and "pool_rot" alike.  ``tables.noise_pool_ext``, the JAX package's
+    wrap-extended pool for "pool_rot", is left out: the port's megakernel
+    indexes the pool modulo its row count and needs no extended copy."""
     t = lambda a: to_tensor(a, device)  # noqa: E731
     rt = {k: t(rtex[k]) for k in ("rt", "valid", "hc", "wc", "cell", "fmat",
                                   "gmat", "smat")}
     consts = scan_fast.texture_constants(cfg, rt["fmat"].dtype, device)
     rt.update({k: consts[k] for k in ("fmat_sw", "shift1", "c_frac")})
+    veh = VehicleParams(**{k: t(vehicle[k]) for k in VehicleParams._fields})
+    tm = TrackMap(**{k: t(tmap[k]) for k in TrackMap._fields})
+    rtex_t = scan_fast.RangeTexture(**rt)
     return EnvParams(
-        vehicle=VehicleParams(**{k: t(vehicle[k]) for k in VehicleParams._fields}),
+        vehicle=veh,
         tables=scan_ops.ScanTables(**{k: t(tables[k]) for k in
                                       scan_ops.ScanTables._fields
                                       if k != "noise_pool_ext"}),
-        tmap=TrackMap(**{k: t(tmap[k]) for k in TrackMap._fields}),
-        rtex=scan_fast.RangeTexture(**rt),
-        noise_pool=None if noise_pool is None else t(noise_pool))
+        tmap=tm, rtex=rtex_t,
+        noise_pool=None if noise_pool is None else t(noise_pool),
+        state_pack=state_kernels.pack_params(veh, tm, rtex_t))
 
 
 def state_from_numpy(state: Mapping, device="cpu") -> EnvState:

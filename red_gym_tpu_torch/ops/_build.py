@@ -4,6 +4,7 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point.  It is compiled with
 ``nvcc`` at first use into ``red_gym_tpu_torch/_build/`` (git-ignored) and
 loaded with ctypes.  The library file name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
+``build_all`` compiles every source at once, one ``nvcc`` process each.
 """
 
 from __future__ import annotations
@@ -15,12 +16,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one kernel on top of NVCC_FLAGS: the state kernel must round every
+# operation on its own, as the PyTorch chain it mirrors does (no FMA
+# contraction)
+EXTRA_FLAGS = {"prestep": ("-fmad=false",)}
 
 
 def nvcc_path() -> str:
@@ -50,7 +56,8 @@ def build(name: str) -> str:
     return the library path.  The compiler's report (registers, spills)
     is kept beside it as ``<library>.log``."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -59,7 +66,7 @@ def build(name: str) -> str:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+    proc = subprocess.run([nvcc_path(), *flags, "-o", tmp, src],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
@@ -67,6 +74,13 @@ def build(name: str) -> str:
         f.write(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel under csrc/ in parallel; {name: library path}."""
+    names = kernel_names()
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.lru_cache(maxsize=None)

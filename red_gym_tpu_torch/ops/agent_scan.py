@@ -52,6 +52,42 @@ def blocked_view_window(pose, vertices, tables: ScanTables):
     return inds.amin(dim=-1), inds.amax(dim=-1)
 
 
+def opponent_slab_scalars(poses, all_vertices, tables: ScanTables):
+    """Per-agent packed scalars of the megakernel's in-kernel opponent ray
+    cast (``scan_kernels.mega_edge_ttc(opp=...)``).
+
+    poses (..., A, 3), all_vertices (..., A, 4, 2) -> (..., A, 10 * (A-1)):
+    10 floats per opponent (i+k) % A, k = 1..A-1,
+    [lo, hi, a_u, b_u, a_w, b_w, o_u, o_w, hu, hw], where the beam direction
+    in the opponent's box frame is d_u[b] = a_u cos_b + b_u sin_b (the
+    agent's heading folded into the box axes) and (lo, hi) is the
+    blocked_view_window."""
+    a_n = poses.shape[-2]
+    ct, st = torch.cos(poses[..., 2]), torch.sin(poses[..., 2])   # (..., A)
+    packs = []
+    for k in range(1, a_n):
+        verts = torch.roll(all_vertices, -k, dims=-3)
+        lo, hi = blocked_view_window(poses, verts, tables)
+        center = torch.mean(verts, dim=-2)                          # (..., A, 2)
+        e_l = verts[..., 3, :] - verts[..., 0, :]
+        e_w = verts[..., 0, :] - verts[..., 1, :]
+        len_l = torch.linalg.norm(e_l, dim=-1)
+        len_w = torch.linalg.norm(e_w, dim=-1)
+        u = e_l / len_l[..., None]
+        w = e_w / len_w[..., None]
+        o = poses[..., 0:2] - center
+        o_u = torch.sum(o * u, dim=-1)
+        o_w = torch.sum(o * w, dim=-1)
+        a_u = u[..., 0] * ct + u[..., 1] * st
+        b_u = -u[..., 0] * st + u[..., 1] * ct
+        a_w = w[..., 0] * ct + w[..., 1] * st
+        b_w = -w[..., 0] * st + w[..., 1] * ct
+        packs.append(torch.stack(
+            [lo.to(poses.dtype), hi.to(poses.dtype), a_u, b_u, a_w, b_w,
+             o_u, o_w, 0.5 * len_l, 0.5 * len_w], dim=-1))          # (..., A, 10)
+    return torch.cat(packs, dim=-1)
+
+
 def beam_dirs(pose_theta, tables: ScanTables):
     """World-frame unit direction of every beam: (...,) -> (..., B, 2), by
     angle addition against the static per-beam sin/cos tables."""

@@ -31,7 +31,9 @@ class ScanTables(NamedTuple):
     beam_cosines: torch.Tensor    # (num_beams,)
     beam_sines: torch.Tensor      # (num_beams,)
     side_distances: torch.Tensor  # (num_beams,) lidar -> car-edge distance
-    noise_pool_ext: Optional[torch.Tensor] = None  # pool_rot only (not ported)
+    # the JAX package's wrap-extended pool of noise_mode="pool_rot"; unused
+    # here: the port's megakernel indexes the pool modulo its row count
+    noise_pool_ext: Optional[torch.Tensor] = None
 
 
 def build_tables(cfg: SimConfig, width: float, length: float, dtype=None,

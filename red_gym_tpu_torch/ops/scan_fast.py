@@ -9,8 +9,12 @@ and the wall-iTTC flag.
 Ported here: the compact texture build (base march, edge localization on
 the edge bins only, channel assembly), its disk cache, and the runtime of
 the library-default pipeline: nearest1 cell, linear theta interpolation,
-edge + grad channels, float32.  The other scan modes raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+edge + grad channels, float32, through the megakernel in every variant: the
+opponent ray cast in the kernel (``use_fused_opp_mega``), the resident noise
+pool of ``noise_mode="pool_rot"``, and the per-row operands computed by the
+pre-scan state kernel (``pregeo``, ``ops/state_kernels.py``).  The other
+scan modes raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -61,8 +65,8 @@ class RangeTexture(NamedTuple):
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for a config whose scan path is not ported.
 
-    The port runs the library-default fast scan through the megakernel
-    (plain variant).  Each other path names its ROADMAP item."""
+    The port runs the library-default fast scan through the megakernel.
+    Each other path names its ROADMAP item."""
     if cfg.scan_mode != "fast":
         raise NotImplementedError(
             "scan_mode='exact' at step time is not ported yet "
@@ -77,23 +81,19 @@ def check_supported(cfg: SimConfig) -> None:
         raise NotImplementedError(
             "the scan megakernel runs in float32 only, as in the JAX package "
             "(ROADMAP queue A: the other scan modes)")
-    if cfg.noise_mode == "pool_rot":
-        raise NotImplementedError(
-            "noise_mode='pool_rot' needs the megakernel's resident-pool "
-            "variant (ROADMAP queue B: kernel 1b)")
-    if cfg.fuse_scan_opp == "on":
-        raise NotImplementedError(
-            "fuse_scan_opp='on' needs the megakernel's opponent variant "
-            "(ROADMAP queue B: kernel 1a)")
-    if cfg.state_kernel == "on":
-        raise NotImplementedError(
-            "state_kernel='on' needs the pre-scan state kernel "
-            "(ROADMAP queue B: kernel 2)")
     if (cfg.scan_megakernel == "off" or cfg.fuse_scan_ttc == "off"
             or cfg.scan_backend == "xla"):
         raise NotImplementedError(
             "the scan paths without the megakernel are not ported "
             "(ROADMAP queue B: kernels 3-7)")
+
+
+def use_fused_opp_mega(cfg: SimConfig) -> bool:
+    """True iff the opponent ray cast rides the megakernel: on unless
+    ``fuse_scan_opp="off"``, and off for fewer than two agents even under
+    "on", as in the JAX package.  On a CUDA device that is the kernel, on
+    the CPU its plain twin."""
+    return cfg.fuse_scan_opp != "off" and cfg.num_agents >= 2
 
 
 def resolve_ew_dtype(cfg: SimConfig, dtype: torch.dtype,
@@ -359,41 +359,69 @@ def _cells_and_theta(pose, tables, tmap: TrackMap, rtex: RangeTexture,
     return rows, in_bounds.to(dtype), dx.to(dtype), dy.to(dtype)
 
 
-def mega_operands(pose, tables, tmap: TrackMap, rtex: RangeTexture,
-                  cfg: SimConfig, noise, vel) -> tuple:
-    """Arguments of ``scan_kernels.mega_edge_ttc`` for poses (E, A, 3),
-    per-env noise rows (E, B) and speeds (E, A): the cell row, offsets and
-    in-bounds weight of each car and its theta decomposition
-    s = theta * T / 2pi = i_f + f_s, all flattened to K = E * A rows."""
+def row_scalars(pose, tmap: TrackMap, rtex: RangeTexture, cfg: SimConfig,
+                vel):
+    """The megakernel's per-row operands of poses (..., 3) and speeds (...):
+    the texture row (...) int32 of the nearest1 cell and the packed scalars
+    (..., 8) [dx, dy, f_s, i_f, inb, vel, 0, 0], where dx/dy is the offset
+    from the cell centre and s = theta * T / 2pi = i_f + f_s."""
     t_bins = cfg.rt_theta_bins
     dtype = rtex.fmat.dtype
     two_pi = 2.0 * math.pi
-    rows, inb, dx, dy = _cells_and_theta(pose, tables, tmap, rtex, cfg)
+    rows, inb, dx, dy = _cells_and_theta(pose, None, tmap, rtex, cfg)
     s = torch.remainder(pose[..., 2], two_pi) * (t_bins / two_pi)
     i_s = torch.floor(s)
     f_s = (s - i_s).to(dtype)
     i_i = i_s.to(torch.int32)
     # s can round up to exactly T (theta just under 2pi): wrap, don't clamp
     i_i = torch.where(i_i >= t_bins, i_i - t_bins, i_i)
-    return (rtex.rt, rows.reshape(-1), dx.reshape(-1), dy.reshape(-1),
-            f_s.reshape(-1), i_i.to(dtype).reshape(-1), inb.reshape(-1),
-            vel.reshape(-1), rtex.fmat, rtex.fmat_sw, rtex.shift1, rtex.gmat,
-            rtex.c_frac, noise, tables.beam_cosines, tables.side_distances,
-            cfg.max_range, cfg.ttc_thresh, pose.shape[-2], t_bins,
-            resolve_ew_dtype(cfg, dtype, pose.device))
+    zero = torch.zeros_like(f_s)
+    scal = torch.stack([dx[..., 0], dy[..., 0], f_s, i_i.to(dtype), inb[..., 0],
+                        vel.to(dtype), zero, zero], dim=-1)
+    return rows[..., 0], scal
+
+
+def mega_operands(pose, tables, tmap: TrackMap, rtex: RangeTexture,
+                  cfg: SimConfig, noise, vel, opp=None, pool_off=None,
+                  pregeo=None) -> dict:
+    """Keyword arguments of ``scan_kernels.mega_edge_ttc`` for poses
+    (E, A, 3) and speeds (E, A), flattened to K = E * A rows.
+
+    ``noise`` is the (E, B) slab, or with ``pool_off`` (1,) int32 the
+    (rows, B) pool of ``noise_mode="pool_rot"``; ``opp`` (E, A, 10(A-1))
+    adds the opponent cast; ``pregeo`` = (rows, scal) from the state kernel
+    replaces the per-row prep (``row_scalars``)."""
+    if pregeo is None:
+        pregeo = row_scalars(pose, tmap, rtex, cfg, vel)
+    rows, scal = pregeo
+    ops = dict(
+        rt=rtex.rt, rows=rows.reshape(-1), scal=scal.reshape(-1, 8),
+        fmat=rtex.fmat, fmat_sw=rtex.fmat_sw, shift1=rtex.shift1,
+        gmat=rtex.gmat, c_frac=rtex.c_frac, noise=noise,
+        cosines=tables.beam_cosines, side_dist=tables.side_distances,
+        max_range=cfg.max_range, ttc_thresh=cfg.ttc_thresh,
+        agents_per_env=pose.shape[-2], t_bins=cfg.rt_theta_bins,
+        ew_dtype=resolve_ew_dtype(cfg, rtex.fmat.dtype, pose.device),
+        pool_off=pool_off)
+    if opp is not None:
+        ops.update(sines=tables.beam_sines, opp=opp.reshape(-1, opp.shape[-1]))
+    return ops
 
 
 def trace_fast_mxu(pose, tables, tmap: TrackMap, rtex: RangeTexture,
-                   cfg: SimConfig, fused_ttc):
+                   cfg: SimConfig, fused_ttc, opp=None, pool_off=None,
+                   pregeo=None):
     """Noisy fast scan and wall-iTTC flag for poses (E, A, 3).
 
-    ``fused_ttc = (noise (E, B), vel (E, A))``.  Returns (scan (E, A, B),
-    hit (E, A) float 0/1); callers apply the ``vel != 0`` mask.  This is the
-    megakernel branch of the JAX function: one launch from the texture rows
-    to the finished scan."""
+    ``fused_ttc = (noise, vel (E, A))`` with noise as in ``mega_operands``;
+    ``opp``, ``pool_off`` and ``pregeo`` select the megakernel's variants
+    (``mega_operands``).  Returns (scan (E, A, B), hit (E, A) float 0/1);
+    callers apply the ``vel != 0`` mask.  This is the megakernel branch of
+    the JAX function: one launch from the texture rows to the finished
+    scan, opponents included when ``opp`` is given."""
     check_supported(cfg)
     noise, vel = fused_ttc
-    out, hit = scan_kernels.mega_edge_ttc(
-        *mega_operands(pose, tables, tmap, rtex, cfg, noise, vel))
+    out, hit = scan_kernels.mega_edge_ttc(**mega_operands(
+        pose, tables, tmap, rtex, cfg, noise, vel, opp, pool_off, pregeo))
     batch = tuple(pose.shape[:-1])
     return out.reshape(batch + (cfg.num_beams,)), hit.reshape(batch)

@@ -52,7 +52,16 @@ def make_rollout(cfg: SimConfig, params: EnvParams,
     from its start pose (one zero-action step, as ``reset``); only the done
     envs are re-stepped.  ``outs`` holds the per-step ``reward`` and
     ``done``, stacked (steps, E), and ``resets``, the number of steps that
-    reset some env."""
+    reset some env.
+
+    Under ``noise_mode="pool_rot"`` env g of a step call reads pool row
+    (g + off) % rows, g counted within the batch passed in.  The reset
+    step passes only the done envs, so the j-th of them reads row
+    (j + off') % rows with a fresh offset off' of its own.  The JAX package
+    re-steps every env and keeps the done ones, so there the j-th done env
+    reads its position in the full batch.  The difference is in which rows
+    are drawn, not in their distribution: one shared offset per call,
+    distinct rows within the call."""
 
     def run(carry: RolloutCarry, gen: torch.Generator):
         rewards, dones, resets = [], [], 0

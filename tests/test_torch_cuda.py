@@ -6,19 +6,24 @@ This file imports no JAX, so it also runs on a GPU machine without JAX:
 
 It covers what chip_smoke.py does not: every storage variant of the scan
 megakernel (bfloat16 / float32 texture, bfloat16 pool / float32 fresh
-noise, bfloat16 / float32 e/w taps), a row count that leaves a partial
-block, and one whole env step on the GPU against the same step on the CPU.
+noise, bfloat16 / float32 e/w taps), its opponent and pool_rot variants for
+2 and 4 agents, row counts that leave a partial block, the state kernel
+against its twin, refused launches and wrong dtypes, and whole env steps on
+the GPU against the same steps on the CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_free_poses
+from chip_smoke import close_poses, random_free_poses, random_states
 from red_gym_tpu_torch import assets, env, rollout
-from red_gym_tpu_torch.config import SimConfig
+from red_gym_tpu_torch.config import Integrator, SimConfig
 from red_gym_tpu_torch.maps.loader import load_map
-from red_gym_tpu_torch.ops import scan_fast, scan_kernels
+from red_gym_tpu_torch.ops import agent_scan, collision, scan_fast, scan_kernels
+from red_gym_tpu_torch.ops import state_kernels
 
 pytestmark = pytest.mark.cuda
 TRACK = "track_0019"
@@ -46,8 +51,24 @@ def _operands(cfg, params, e_n, noise_dtype, seed=0):
     vel = -2.0 + 10.0 * torch.rand((e_n, 2), generator=gen, device=dev)
     noise = (0.01 * torch.randn((e_n, cfg.num_beams), generator=gen,
                                 device=dev)).to(noise_dtype)
-    return list(scan_fast.mega_operands(poses, params.tables, params.tmap,
-                                        params.rtex, cfg, noise, vel))
+    return scan_fast.mega_operands(poses, params.tables, params.tmap,
+                                   params.rtex, cfg, noise, vel)
+
+
+def _check_against_twin(params, ops, variant):
+    before = scan_kernels.mega_edge_ttc.launches[variant]
+    out, hit = scan_kernels.mega_edge_ttc(**ops)
+    assert scan_kernels.mega_edge_ttc.launches[variant] == before + 1
+    ref_out, ref_hit = scan_kernels.mega_edge_ttc_reference(**ops)
+    torch.cuda.synchronize()
+    err = (out - ref_out).abs()
+    cell = float(params.rtex.cell)
+    assert torch.isfinite(out).all()
+    assert float(torch.quantile(err.flatten(), 0.99)) < 1e-3
+    assert float((err > 4 * cell).float().mean()) < 2e-3
+    assert torch.equal(hit, ref_hit)
+    assert hit.sum() > 0, "fixture guard: no iTTC hits"
+    return out
 
 
 @pytest.mark.parametrize("rt_dtype", [torch.bfloat16, torch.float32])
@@ -57,47 +78,107 @@ def test_kernel_variants_match_plain_twin(gpu_params, rt_dtype, noise_dtype,
                                           ew_dtype):
     cfg, params = gpu_params
     ops = _operands(cfg, params, 1001, noise_dtype)   # 2002 rows: partial block
-    ops[0] = ops[0].to(rt_dtype)
-    ops[-1] = ew_dtype
-    before = scan_kernels.mega_edge_ttc.launches
-    out, hit = scan_kernels.mega_edge_ttc(*ops)
-    assert scan_kernels.mega_edge_ttc.launches == before + 1
-    ref_out, ref_hit = scan_kernels.mega_edge_ttc_reference(*ops)
+    ops.update(rt=ops["rt"].to(rt_dtype), ew_dtype=ew_dtype)
+    _check_against_twin(params, ops, "plain")
+
+
+@pytest.mark.parametrize("agents", [2, 4])
+@pytest.mark.parametrize("variant", ["opp", "pool_rot", "opp+pool_rot"])
+def test_mega_variants_match_plain_twin(gpu_params, agents, variant):
+    """Opponents within 2.5 m, the pool at offset rows - 37; 1001 envs leave
+    a partial last block for both agent counts."""
+    cfg, params = gpu_params
+    dev = params.rtex.rt.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    e_n = 1001
+    poses = close_poses(params, e_n, agents, gen)
+    vel = -2.0 + 10.0 * torch.rand((e_n, agents), generator=gen, device=dev)
+    opp = pool_off = None
+    noise = params.noise_pool[torch.randint(0, cfg.noise_pool_rows, (e_n,),
+                                            generator=gen, device=dev)]
+    if "opp" in variant:
+        verts = collision.get_vertices(poses, params.vehicle.length, params.vehicle.width)
+        opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
+    if "pool_rot" in variant:
+        noise = params.noise_pool
+        pool_off = torch.tensor([cfg.noise_pool_rows - 37], dtype=torch.int32, device=dev)
+    ops = scan_fast.mega_operands(poses, params.tables, params.tmap, params.rtex,
+                                  cfg, noise, vel, opp=opp, pool_off=pool_off)
+    out = _check_against_twin(params, ops, variant)
+    if opp is not None:
+        base, _ = scan_kernels.mega_edge_ttc_reference(**{**ops, "opp": None,
+                                                          "sines": None})
+        assert (out < base - 1e-6).any(), "fixture guard: no beam shortened"
+
+
+@pytest.mark.parametrize("integrator", [Integrator.RK4, Integrator.EULER])
+def test_prestep_matches_plain_twin(gpu_params, integrator):
+    """1001 x 2 random in-range cars: integer outputs exactly equal, float
+    outputs within 1e-6."""
+    cfg, params = gpu_params
+    cfg = dataclasses.replace(cfg, integrator=integrator)
+    gen = torch.Generator(device=params.rtex.rt.device).manual_seed(4)
+    args = random_states(params, (1001, 2), gen)
+    before = state_kernels.prestep.launches
+    got = state_kernels.prestep(cfg, params, *args)
+    assert state_kernels.prestep.launches == before + 1
+    want = state_kernels.prestep_reference(cfg, params, *args)
     torch.cuda.synchronize()
-    err = (out - ref_out).abs()
-    cell = float(params.rtex.cell)
-    assert torch.isfinite(out).all()
-    assert float(torch.quantile(err.flatten(), 0.99)) < 1e-3
-    assert float((err > 4 * cell).float().mean()) < 2e-3
-    assert torch.equal(hit, ref_hit)
-    assert hit.sum() > 0, "fixture guard: no iTTC hits"
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    for g, w in ((got[2], want[2]), (got[3], want[3]),
+                 (got[4][..., 3:5], want[4][..., 3:5])):
+        assert torch.equal(g, w)
+    for g, w in zip(got, want):
+        assert float((g.float() - w.float()).abs().max()) <= 1e-6
 
 
 def test_kernel_rejects_what_it_cannot_take(gpu_params):
     cfg, params = gpu_params
     ops = _operands(cfg, params, 8, torch.bfloat16)
-    bad = list(ops)
-    bad[8] = ops[8].double()                        # fmat
-    with pytest.raises(ValueError, match="fmat must be float32"):
-        scan_kernels.mega_edge_ttc(*bad)
-    bad = list(ops)
-    bad[19] = 256                                   # t_bins
-    bad[0] = torch.zeros((4, 5 * 256), device=ops[0].device)
+    dev = ops["rt"].device
+    for key, bad, match in [
+            ("fmat", ops["fmat"].double(), "fmat must be float32"),
+            ("scal", ops["scal"].double(), "scal must be float32"),
+            ("rows", ops["rows"].long(), "rows must be int32")]:
+        with pytest.raises(ValueError, match=match):
+            scan_kernels.mega_edge_ttc(**{**ops, key: bad})
     with pytest.raises(ValueError, match="rt_theta_bins=128"):
-        scan_kernels.mega_edge_ttc(*bad)
+        scan_kernels.mega_edge_ttc(**{**ops, "t_bins": 256,
+                                      "rt": torch.zeros((4, 5 * 256), device=dev)})
+    with pytest.raises(ValueError, match="pool_off must be int32"):
+        scan_kernels.mega_edge_ttc(**{**ops, "noise": params.noise_pool,
+                                      "pool_off": torch.zeros(1, dtype=torch.int64,
+                                                              device=dev)})
+    # 1000 opponents need 320 KB of shared memory a block: refused, and said so
+    k_n = ops["rows"].shape[0]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        scan_kernels.mega_edge_ttc(**{**ops, "sines": params.tables.beam_sines,
+                                      "opp": torch.zeros((k_n, 10_000), device=dev)})
+    args = random_states(params, (4, 2), torch.Generator(device=dev))
+    with pytest.raises(ValueError, match="steer_cnt must be int32"):
+        state_kernels.prestep(cfg, params, *args[:2], args[2].long(), args[3])
+    with pytest.raises(ValueError, match="state_pack"):
+        state_kernels.prestep(cfg, params._replace(state_pack=None), *args)
 
 
-@pytest.mark.parametrize("noise_mode", ["pool", "fresh"])
+@pytest.mark.parametrize("noise_mode", ["pool", "fresh", "pool_rot", "eager"])
 def test_env_step_on_gpu_matches_cpu(gpu_params, noise_mode):
-    """One reset + 5 steps on the GPU (kernel) and the CPU (plain twin) from
-    identical inputs.  The generators of the two devices differ, so "pool"
-    runs on a pool whose rows are all equal (bfloat16 noise in the kernel)
-    and "fresh" runs without noise (float32 noise in the kernel)."""
+    """One reset + 5 steps on the GPU (kernels) and the CPU (plain twins)
+    from identical inputs.  The generators of the two devices differ, so
+    "pool" and "pool_rot" run on a pool whose rows are all equal (bfloat16
+    noise in the kernel) and "fresh" runs without noise (float32 noise in
+    the kernel).  "eager" is the pool config with the state kernel and the
+    fused opponent cast off."""
     _, params_g = gpu_params
+    eager = noise_mode == "eager"
+    noise_mode = "pool" if eager else noise_mode
     cfg = SimConfig(num_agents=2, num_beams=1080, scan_mode="fast",
                     rt_pose_stride=8, ttc_thresh=0.5, noise_mode=noise_mode,
-                    scan_noise_std=0.01 if noise_mode == "pool" else 0.0,
-                    rt_ew_dtype="bfloat16")
+                    scan_noise_std=0.0 if noise_mode == "fresh" else 0.01,
+                    rt_ew_dtype="bfloat16",
+                    state_kernel="off" if eager else "auto",
+                    fuse_scan_opp="off" if eager else "auto")
     row = 0.01 * torch.randn((1, cfg.num_beams), generator=torch.Generator().manual_seed(1))
     pool = row.expand(cfg.noise_pool_rows, -1).to(torch.bfloat16)
 

@@ -8,6 +8,11 @@ waypoint starts on track_0019 at texture stride 8, with the same numpy
 actions.  Both noise pools are one identical numpy pool whose rows are all
 equal, so each package's own row pick cannot matter.
 
+Two configurations: the eager path (state kernel and fused opponent cast
+off, row-pick pool noise) and the fully fused step (state kernel, opponent cast
+in the megakernel, ``noise_mode="pool_rot"``; on the JAX side the
+wrap-extended pool ``tables.noise_pool_ext`` is the all-equal pool too).
+
 Bars: poses within 1e-4 m; scans at the float32 bar of
 tests/test_scan_fast.py (p99 |diff| < 1e-3 m, < 0.2 % of beams off by more
 than 4 texture cells); collisions, lap counts and done exactly equal.
@@ -32,8 +37,10 @@ STEPS = 30
 TRACK = "track_0019"
 CFG_KW = dict(num_agents=A, num_beams=B, dtype="float32", scan_mode="fast",
               rt_pose_stride=8, scan_backend="pallas", fuse_scan_ttc="on",
-              scan_megakernel="on", fuse_scan_opp="off",
+              scan_megakernel="on", fuse_scan_opp="off", state_kernel="off",
               rt_ew_dtype="float32", ttc_thresh=2.0)
+FUSED_KW = dict(CFG_KW, fuse_scan_opp="on", state_kernel="on",
+                noise_mode="pool_rot")
 
 
 def _leaves(nt):
@@ -46,19 +53,22 @@ def _scan_bar(a, b, cell):
     assert np.mean(err > 4 * cell) < 2e-3, np.mean(err > 4 * cell)
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _setup(cfg_kw):
     torch.set_num_threads(2)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
-        cfg_j = JSimConfig(**CFG_KW)
+        cfg_j = JSimConfig(**cfg_kw)
         jp = jenv.make_params(cfg_j, assets.named_map_yaml(TRACK))
     rng = np.random.default_rng(0)
     row = rng.normal(0.0, 0.01, (1, B)).astype(np.float32)
     pool = np.repeat(row, cfg_j.noise_pool_rows, axis=0)
     jp = jp._replace(noise_pool=jnp.asarray(pool).astype(jnp.bfloat16))
+    if jp.tables.noise_pool_ext is not None:
+        ext = np.repeat(row, jp.tables.noise_pool_ext.shape[0], axis=0)
+        jp = jp._replace(tables=jp.tables._replace(
+            noise_pool_ext=jnp.asarray(ext).astype(jnp.bfloat16)))
 
-    cfg_t = TSimConfig(**CFG_KW)
+    cfg_t = TSimConfig(**cfg_kw)
     tp = interop.params_from_numpy(
         cfg_t, _leaves(jp.vehicle), _leaves(jp.tables), _leaves(jp.tmap),
         _leaves(jp.rtex), np.asarray(jp.noise_pool))
@@ -69,11 +79,33 @@ def setup():
     return cfg_j, jp, cfg_t, tp, poses.astype(np.float32), actions
 
 
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(CFG_KW)
+
+
+@pytest.fixture(scope="module")
+def setup_fused():
+    setup = _setup(FUSED_KW)
+    assert setup[1].tables.noise_pool_ext is not None, "JAX pool_rot fell back"
+    return setup
+
+
 def _jax_step(cfg_j, jp):
     return jax.jit(jax.vmap(lambda s, a: jenv.step(cfg_j, jp, s, a)))
 
 
 def test_step_sequence_matches_jax(setup):
+    _check_step_sequence(setup)
+
+
+def test_fused_step_sequence_matches_jax(setup_fused):
+    """The fully fused step: prestep + megakernel with opponents + pool_rot
+    (the port's twins on the CPU, JAX's interpret-mode kernels)."""
+    _check_step_sequence(setup_fused)
+
+
+def _check_step_sequence(setup):
     cfg_j, jp, cfg_t, tp, poses, actions = setup
     cell = float(tp.rtex.cell)
     keys = jax.random.split(jax.random.PRNGKey(0), E)
@@ -101,6 +133,14 @@ def test_step_sequence_matches_jax(setup):
 
 def test_rollout_auto_reset_step_matches_jax(setup):
     """One make_rollout step with auto-reset, from one identical state."""
+    _check_auto_reset_step(setup)
+
+
+def test_fused_rollout_auto_reset_step_matches_jax(setup_fused):
+    _check_auto_reset_step(setup_fused)
+
+
+def _check_auto_reset_step(setup):
     cfg_j, jp, cfg_t, tp, poses, actions = setup
     keys = jax.random.split(jax.random.PRNGKey(1), E)
     js, jo, *_ = jrollout.batched_reset(cfg_j, jp, jnp.asarray(poses), keys)
@@ -151,9 +191,6 @@ def test_f110env_reset_and_step(tmp_path, monkeypatch):
     (dict(rt_spatial="bilinear"), "the other scan modes"),
     (dict(rt_occlusion="off"), "the other scan modes"),
     (dict(dtype="float64"), "the other scan modes"),
-    (dict(noise_mode="pool_rot"), "kernel 1b"),
-    (dict(fuse_scan_opp="on"), "kernel 1a"),
-    (dict(state_kernel="on"), "kernel 2"),
     (dict(scan_megakernel="off"), "kernels 3-7"),
 ], ids=lambda v: v if isinstance(v, str) else ",".join(f"{k}={x}" for k, x in v.items()))
 def test_unported_paths_raise_naming_their_roadmap_item(kw, item):

@@ -78,12 +78,14 @@ def _jax_mega(rt, per_row, consts, ew):
 
 
 def _torch_args(rt, per_row, consts, ew):
+    """Keyword arguments of scan_kernels.mega_edge_ttc."""
     p = {k: torch.from_numpy(v) for k, v in per_row.items()}
-    c = {k: to_tensor(v) for k, v in consts.items()}
-    return (to_tensor(rt), p["rows"], p["dx"], p["dy"], p["f_s"], p["i_f"],
-            p["inb"], p["vel"], c["fmat"], c["fmat_sw"], c["shift1"], c["gmat"],
-            c["c_frac"], c["noise"], c["cosines"], c["side_dist"], 30.0, TTC, A,
-            T, getattr(torch, ew))
+    scal = torch.stack([p[k] for k in ("dx", "dy", "f_s", "i_f", "inb", "vel")]
+                       + [torch.zeros(E * A)] * 2, dim=-1)
+    return dict(rt=to_tensor(rt), rows=p["rows"], scal=scal,
+                **{k: to_tensor(v) for k, v in consts.items()},
+                max_range=30.0, ttc_thresh=TTC, agents_per_env=A, t_bins=T,
+                ew_dtype=getattr(torch, ew))
 
 
 @pytest.mark.parametrize("ew", ["float32", "bfloat16"])
@@ -91,7 +93,7 @@ def test_reference_matches_jax_kernel(operands, ew):
     rt, per_row, consts, cell = operands
     j_out, j_hit = _jax_mega(rt, per_row, consts, ew)
     t_out, t_hit = scan_kernels.mega_edge_ttc_reference(
-        *_torch_args(rt, per_row, consts, ew))
+        **_torch_args(rt, per_row, consts, ew))
     assert t_out.shape == (E * A, B) and t_out.dtype == torch.float32
     err = np.abs(t_out.numpy() - j_out)
     assert np.quantile(err, 0.99) < 1e-3, np.quantile(err, 0.99)
@@ -108,29 +110,21 @@ def test_reference_matches_jax_kernel(operands, ew):
 def test_dispatcher_on_cpu_is_the_reference(operands):
     rt, per_row, consts, _ = operands
     args = _torch_args(rt, per_row, consts, "bfloat16")
-    before = scan_kernels.mega_edge_ttc.launches
-    out, hit = scan_kernels.mega_edge_ttc(*args)
-    ref_out, ref_hit = scan_kernels.mega_edge_ttc_reference(*args)
+    before = dict(scan_kernels.mega_edge_ttc.launches)
+    out, hit = scan_kernels.mega_edge_ttc(**args)
+    ref_out, ref_hit = scan_kernels.mega_edge_ttc_reference(**args)
     assert torch.equal(out, ref_out) and torch.equal(hit, ref_hit)
-    assert scan_kernels.mega_edge_ttc.launches == before == 0
+    assert scan_kernels.mega_edge_ttc.launches == before
+    assert not any(before.values())
 
 
 def test_dispatcher_rejects_bad_operands(operands):
     rt, per_row, consts, _ = operands
-    args = list(_torch_args(rt, per_row, consts, "bfloat16"))
-    bad_noise = list(args)
-    bad_noise[13] = args[13][:-1]          # one env short
-    with pytest.raises(ValueError, match="noise"):
-        scan_kernels.mega_edge_ttc(*bad_noise)
-    bad_rows = list(args)
-    bad_rows[2] = args[2][:-1]             # dx one row short
-    with pytest.raises(ValueError, match=r"\(K,\)"):
-        scan_kernels.mega_edge_ttc(*bad_rows)
-    bad_rt = list(args)
-    bad_rt[0] = args[0][:, :-1]
-    with pytest.raises(ValueError, match="rt must be"):
-        scan_kernels.mega_edge_ttc(*bad_rt)
-    bad_dev = list(args)
-    bad_dev[0] = args[0].to("meta")
-    with pytest.raises(ValueError, match="one device"):
-        scan_kernels.mega_edge_ttc(*bad_dev)
+    args = _torch_args(rt, per_row, consts, "bfloat16")
+    for key, bad, match in [
+            ("noise", args["noise"][:-1], "noise"),          # one env short
+            ("scal", args["scal"][:-1], r"scal \(K, 8\)"),   # one row short
+            ("rt", args["rt"][:, :-1], "rt must be"),
+            ("rt", args["rt"].to("meta"), "one device")]:
+        with pytest.raises(ValueError, match=match):
+            scan_kernels.mega_edge_ttc(**{**args, key: bad})
