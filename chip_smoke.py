@@ -26,6 +26,11 @@ line:
    - prestep (the pre-scan state kernel) on random in-range states and
      actions: texture row, steer_cnt, i_f and inb exactly equal, float
      outputs within 1e-6 (bit-exactness is reported);
+   - the four epilogue kernels of the unfused scan (theta_shuffle_blend
+     and its edge, edge + iTTC and edge + iTTC + opponent forms) on the
+     rolled spectra of the bilinear config's prep chain, cars within 2.5 m
+     of each other; the scan bar (hits where a kernel has them); the
+     opponent form must shorten some beams;
 5. main paths, each rollout.batched_reset of 16384 x 2 cars at waypoint
    starts, 10 warm-up steps, then timed make_rollout steps with
    random_policy and auto-reset; every kernel's launch count (set to 0 just
@@ -34,11 +39,20 @@ line:
    - default: prestep + megakernel with opponents, pool noise;
    - pool_rot: the same with noise_mode="pool_rot";
    - eager prestate: state_kernel="off", fuse_scan_opp="off" (the plain
-     megakernel and the eager chain around it).
+     megakernel and the eager chain around it);
+   - bilinear (bench.py's mode): the prep chain and the edge epilogue with
+     noise, iTTC and opponents;
+   - bilinear_opp_off: the edge epilogue with noise and iTTC, then the
+     eager opponent pass;
+   - bilinear_ttc_off: the edge epilogue alone, then the eager noise add,
+     iTTC check and opponent pass;
+   - legacy (bench.py's mode: bilinear, occlusion off, no grad channels,
+     a 1-channel texture marched on the card): the plain 3-tap epilogue
+     and the eager tail.
 
 ``--profile`` adds torch.profiler summaries (device kernels and device
-busy time per step) of the default and the eager path, and a table of the
-default path's kernels by device time.
+busy time per step) of the default, eager and bilinear paths, and tables of
+the default and the bilinear path's kernels by device time.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
@@ -153,8 +167,42 @@ def random_states(params, shape, gen):
             cnt.reshape(shape), act.reshape(*shape, 2))
 
 
+def blend_operands(cfg, params, poses, gen) -> dict:
+    """Keyword operands of the four epilogue kernels of ``blend_kernels``
+    for poses (E, A, 3), by name: the rolled spectra of the slice's own prep
+    chain (``scan_fast.rolled_spectra`` in cfg, an edge config), speeds in
+    [-2, 8) m/s, one noise pool row per env and, for two or more agents,
+    the opponent packs.  Kernel 7 takes the range spectra."""
+    import torch
+
+    from red_gym_tpu_torch.ops import agent_scan, collision, scan_fast
+
+    e_n, a_n = poses.shape[:2]
+    dev, t_bins = poses.device, cfg.rt_theta_bins
+    sp = scan_fast.rolled_spectra(poses, params.tmap, params.rtex, cfg)
+    spec = sp.spec_r.reshape(-1, 3, t_bins)
+    vel = -2.0 + 10.0 * torch.rand((e_n * a_n,), generator=gen, device=dev)
+    rows = torch.randint(0, cfg.noise_pool_rows, (e_n,), generator=gen, device=dev)
+    render = dict(f_s=sp.f_s.reshape(-1), wsum=sp.wsum.reshape(-1), gmat=params.rtex.gmat,
+                  c_frac=params.rtex.c_frac, max_range=cfg.max_range)
+    edge = dict(render, spec_r=spec[:, 0], spec_e=spec[:, 1], spec_w=spec[:, 2],
+                ew_dtype=scan_fast.resolve_ew_dtype(cfg, torch.float32, dev))
+    ttc = dict(edge, vel=vel, noise=params.noise_pool[rows],
+               cosines=params.tables.beam_cosines, side_dist=params.tables.side_distances,
+               ttc_thresh=cfg.ttc_thresh, agents_per_env=a_n)
+    ops = {"theta_shuffle_blend": dict(render, spec_r=spec[:, 0]),
+           "theta_shuffle_blend_edge": edge, "theta_shuffle_blend_edge_ttc": ttc}
+    if a_n >= 2:
+        verts = collision.get_vertices(poses, params.vehicle.length, params.vehicle.width)
+        opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
+        ops["theta_shuffle_blend_edge_ttc_opp"] = dict(
+            ttc, sines=params.tables.beam_sines, opp=opp.reshape(e_n * a_n, -1))
+    return ops
+
+
 def scan_bar(label: str, out_k, hit_k, out_r, hit_r, cell: float) -> float:
-    """The float32 scan bar of kernel against twin; returns max |diff|."""
+    """The float32 scan bar of kernel against twin; returns max |diff|.
+    Kernels without iTTC pass hit_k = hit_r = None."""
     import torch
 
     err = (out_k - out_r).abs()
@@ -162,15 +210,19 @@ def scan_bar(label: str, out_k, hit_k, out_r, hit_r, cell: float) -> float:
     p99 = float(flat[int(0.99 * (flat.numel() - 1))])
     far = float((err > 4 * cell).float().mean())
     max_err = float(err.max())
-    n_hits = int(hit_r.sum())
-    hit_diff = int((hit_k != hit_r).sum())
+    hits = ""
+    if hit_r is not None:
+        n_hits = int(hit_r.sum())
+        hit_diff = int((hit_k != hit_r).sum())
+        hits = f", {n_hits} hit rows, {hit_diff} hit mismatches"
     say("kernel", f"{label}: K={out_k.shape[0]} B={out_k.shape[1]}: p99 |diff| "
-        f"{p99:.3e} m, max {max_err:.3e} m, {100 * far:.4f}% beams > 4 cells, "
-        f"{n_hits} hit rows, {hit_diff} hit mismatches")
+        f"{p99:.3e} m, max {max_err:.3e} m, {100 * far:.4f}% beams > 4 cells{hits}")
     if not torch.isfinite(out_k).all():
         fail(f"{label}: kernel scan has non-finite values")
     if p99 >= P99_TOL or far >= FAR_FRAC_TOL:
         fail(f"{label}: kernel disagrees with its plain twin (p99 {p99}, far {far})")
+    if hit_r is None:
+        return max_err
     if hit_diff:
         bad = torch.nonzero(hit_k != hit_r).squeeze(1)[:5]
         fail(f"{label}: {hit_diff} iTTC hit flags differ from the plain twin; rows "
@@ -233,6 +285,41 @@ def mega_phase(cfg, params, dev) -> dict:
     return rec
 
 
+def blend_phase(cfg, params, dev) -> dict:
+    """The four epilogue kernels against their twins on operands of the
+    bilinear config's prep chain, cars within 2.5 m of each other;
+    {kernel name: record fields}."""
+    import torch
+
+    from red_gym_tpu_torch.ops import blend_kernels
+
+    cell = float(params.rtex.cell)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    poses = close_poses(params, ENVS, AGENTS, gen)
+    ops = blend_operands(cfg, params, poses, gen)
+    if ops["theta_shuffle_blend_edge"]["ew_dtype"] != torch.bfloat16:
+        fail("e/w taps did not resolve to bfloat16 on CUDA")
+    rec = {}
+    for name, kw in ops.items():
+        kernel = getattr(blend_kernels, name)
+        twin = getattr(blend_kernels, name + "_reference")
+        got, want = kernel(**kw), twin(**kw)
+        torch.cuda.synchronize()
+        out_k, hit_k = got if isinstance(got, tuple) else (got, None)
+        out_r, hit_r = want if isinstance(want, tuple) else (want, None)
+        err = scan_bar(name, out_k, hit_k, out_r, hit_r, cell)
+        if name.endswith("_opp"):
+            base, _ = blend_kernels.theta_shuffle_blend_edge_ttc_reference(
+                **ops["theta_shuffle_blend_edge_ttc"])
+            shortened = int((out_k < base - 1e-6).sum())
+            say("kernel", f"{name}: {shortened} beams shortened by an opponent")
+            if shortened == 0:
+                fail(f"{name}: no beam shortened by an opponent")
+        rec[name] = {"max_abs_err": err, **timed(name, lambda: kernel(**kw),
+                                                  lambda: twin(**kw))}
+    return rec
+
+
 def prestep_phase(cfg, params, dev) -> dict:
     """The state kernel against its eager twin on random in-range states."""
     import torch
@@ -263,18 +350,20 @@ def prestep_phase(cfg, params, dev) -> dict:
 
 
 def launch_counts() -> dict:
-    from red_gym_tpu_torch.ops import scan_kernels, state_kernels
+    from red_gym_tpu_torch.ops import blend_kernels, scan_kernels, state_kernels
 
     return {**{f"mega_edge_ttc[{k}]": v
                for k, v in scan_kernels.mega_edge_ttc.launches.items()},
-            "prestep": state_kernels.prestep.launches}
+            "prestep": state_kernels.prestep.launches,
+            **{fn.__name__: fn.launches for fn in blend_kernels.KERNELS}}
 
 
 def reset_launch_counts() -> None:
-    from red_gym_tpu_torch.ops import scan_kernels, state_kernels
+    from red_gym_tpu_torch.ops import blend_kernels, scan_kernels, state_kernels
 
     scan_kernels.reset_launches()
     state_kernels.prestep.launches = 0
+    blend_kernels.reset_launches()
 
 
 def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
@@ -294,7 +383,8 @@ def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
     carry = rollout.RolloutCarry(state, obs)
     carry, _ = rollout.make_rollout(cfg, params, policy, WARMUP_STEPS)(carry, gen)
     if profile:
-        profile_steps(label, cfg, params, policy, carry, gen, table=label == "default")
+        profile_steps(label, cfg, params, policy, carry, gen,
+                      table=label in ("default", "bilinear"))
     run = rollout.make_rollout(cfg, params, policy, steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -364,7 +454,7 @@ def profile_steps(label, cfg, params, policy, carry, gen, table: bool) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile 5 steps of the default and the eager path")
+                    help="also profile 5 steps of the default, eager and bilinear paths")
     args = ap.parse_args()
     try:
         import torch
@@ -409,11 +499,16 @@ def main() -> None:
         f"({rt.numel() * rt.element_size() / 1e6:.0f} MB); make_params (map, "
         f"EDT, texture marched on the card) {time.perf_counter() - t0:.1f} s")
 
+    # the bilinear config (bench.py's "bilinear" mode) reads the same
+    # texture: its channels do not depend on rt_spatial
+    bil = dataclasses.replace(cfg, rt_spatial="bilinear")
     mega = mega_phase(cfg, params, dev)
     pre = prestep_phase(cfg, params, dev)
+    blend = blend_phase(bil, params, dev)
 
-    # one params serve all three configs: they differ in noise_mode (the
-    # pool is built for "pool" and "pool_rot" alike) and the kernel knobs
+    # one params serve the configs of one texture: they differ in
+    # noise_mode (the pool is built for "pool" and "pool_rot" alike), the
+    # cell lookup and the kernel knobs
     default = main_path("default", cfg, params, dev, STEPS,
                         ("mega_edge_ttc[opp]", "prestep"), args.profile)
     rot = main_path("pool_rot", dataclasses.replace(cfg, noise_mode="pool_rot"),
@@ -422,9 +517,26 @@ def main() -> None:
     eager = main_path("eager", dataclasses.replace(cfg, state_kernel="off",
                                                    fuse_scan_opp="off"),
                       params, dev, STEPS, ("mega_edge_ttc[plain]",), args.profile)
+    bilinear = main_path("bilinear", bil, params, dev, STEPS,
+                         ("theta_shuffle_blend_edge_ttc_opp",), args.profile)
+    bil_ttc = main_path("bilinear_opp_off", dataclasses.replace(bil, fuse_scan_opp="off"),
+                        params, dev, STEPS, ("theta_shuffle_blend_edge_ttc",), False)
+    bil_edge = main_path("bilinear_ttc_off", dataclasses.replace(bil, fuse_scan_ttc="off"),
+                         params, dev, STEPS, ("theta_shuffle_blend_edge",), False)
+    # bench.py's "legacy" mode: occlusion off, no grad channels, so a
+    # 1-channel texture of its own, marched on the card
+    leg_cfg = dataclasses.replace(bil, rt_occlusion="off", rt_grad=False)
+    t0 = time.perf_counter()
+    leg_params = env.make_params(leg_cfg, assets.named_map_yaml(TRACK), device=dev)
+    torch.cuda.synchronize()
+    say("texture", f"legacy: rt {tuple(leg_params.rtex.rt.shape)}; make_params "
+        f"{time.perf_counter() - t0:.1f} s")
+    legacy = main_path("legacy", leg_cfg, leg_params, dev, STEPS,
+                       ("theta_shuffle_blend",), False)
 
     mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
                 "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}
+    blend_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/theta_blend.cu"}
     records = [
         {"name": "mega_edge_ttc", **mega_src,
          "launches": eager["mega_edge_ttc[plain]"], **mega["plain"]},
@@ -436,6 +548,14 @@ def main() -> None:
          "replaces": "red_gym_tpu/ops/pallas_state.py:134",
          "launches": default["prestep"], **pre},
     ]
+    for name, line, counts in (
+            ("theta_shuffle_blend_edge_ttc", 461, bil_ttc),
+            ("theta_shuffle_blend_edge_ttc_opp", 560, bilinear),
+            ("theta_shuffle_blend_edge", 267, bil_edge),
+            ("theta_shuffle_blend", 74, legacy)):
+        records.append({"name": name, **blend_src,
+                        "replaces": f"red_gym_tpu/ops/pallas_scan.py:{line}",
+                        "launches": counts[name], **blend[name]})
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),

@@ -10,7 +10,11 @@ CPU device always their plain PyTorch twins (see ``env.py``,
 ``ops/scan_fast.py``).  So the default config runs the state kernel and the
 megakernel with the opponent cast; ``state_kernel="off"`` and
 ``fuse_scan_opp="off"`` select the eager pre-scan chain and the separate
-opponent pass.
+opponent pass; ``scan_megakernel="off"`` or a config outside the
+megakernel's scope (``rt_spatial``, ``rt_occlusion``, ``rt_grad``) runs the
+unfused scan, whose epilogue takes the noise, iTTC and opponent cast as
+``fuse_scan_ttc`` and ``fuse_scan_opp`` say.  ``scan_backend="xla"`` names
+the TPU compiler's path and is refused.
 """
 
 from __future__ import annotations

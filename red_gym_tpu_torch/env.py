@@ -14,14 +14,17 @@ casting -> time/lap/done.  Randomness comes only from the
 the env's agents (the reference's identical-seed-per-car quirk,
 base_classes.py:117,202).
 
-The step runs on three hand-written kernels where the config is in their
-scope: the pre-scan state kernel (``cfg.state_kernel``,
-``ops/state_kernels.py``), and the scan megakernel with the opponent ray
+The step runs on hand-written kernels where the config is in their scope:
+the pre-scan state kernel (``cfg.state_kernel``, ``ops/state_kernels.py``)
+and the scan megakernel (``cfg.scan_megakernel``) with the opponent ray
 cast in it (``cfg.fuse_scan_opp``) and, under ``noise_mode="pool_rot"``,
-its resident noise pool (``ops/scan_kernels.py``).  "auto" resolves by
-scope alone: an in-scope config runs the kernels on a CUDA device and their
-plain PyTorch twins on the CPU; out of scope, "auto" takes the eager chain
-and "on" raises ValueError.
+its resident noise pool (``ops/scan_kernels.py``); without the megakernel,
+the epilogue kernels of the unfused scan (``ops/blend_kernels.py``), the
+edge render with the noise add and iTTC (``cfg.fuse_scan_ttc``) and the
+opponent cast (``cfg.fuse_scan_opp``) in it, the edge render alone, or the
+plain 3-tap blend.  "auto" resolves by scope alone: an in-scope config runs
+the kernels on a CUDA device and their plain PyTorch twins on the CPU; out
+of scope, "auto" takes the eager code and "on" raises ValueError.
 """
 
 from __future__ import annotations
@@ -159,27 +162,29 @@ def use_state_kernel(cfg: SimConfig, params: EnvParams) -> bool:
         raise ValueError(
             "state_kernel='on' needs the kernel's scope: scan_mode='fast', "
             "rt_spatial='nearest1', dtype='float32', steer_delay=2, the "
-            "default PID and scalar vehicle params (state_kernels.supported)")
+            "default PID, the megakernel resolving on and scalar vehicle "
+            "params (state_kernels.supported)")
     return False
 
 
 def _noise_rows(cfg: SimConfig, params: EnvParams, e_n: int, gen):
-    """This step's noise operand of the megakernel -> (noise, pool_off):
-    one row per env (E, B), a row of the pool (bfloat16 storage, read by
-    the kernel as is) or a fresh draw, with pool_off None; or under
-    "pool_rot" the whole (rows, B) pool and one draw pool_off (1,) int32
-    on the device: env g reads pool row (g + (pool_off & ~15)) % rows
+    """This step's scan noise -> (noise, pool_off): one row per env (E, B),
+    a row of the pool (bfloat16 storage, read by the kernels as is) or a
+    fresh draw, with pool_off None.  Under "pool_rot" with the megakernel
+    resolving on: the whole (rows, B) pool and one draw pool_off (1,) int32
+    on the device, env g reading pool row (g + (pool_off & ~15)) % rows
     (scan_kernels.pool_rot_rows), the counterpart of the JAX package's
-    env-0 draw."""
+    env-0 draw; without the megakernel, "pool_rot" picks one pool row per
+    env as "pool" does, as the JAX package does."""
     device = params.tables.beam_cosines.device
     if cfg.scan_noise_std <= 0:
         return torch.zeros((e_n, cfg.num_beams), dtype=cfg.tdtype,
                            device=device), None
-    if cfg.noise_mode == "pool_rot":
+    if cfg.noise_mode == "pool_rot" and scan_fast.use_megakernel(cfg):
         off = torch.randint(0, cfg.noise_pool_rows, (1,), generator=gen,
                             device=device, dtype=torch.int32)
         return params.noise_pool, off
-    if cfg.noise_mode == "pool":
+    if cfg.noise_mode in ("pool", "pool_rot"):
         r = torch.randint(0, cfg.noise_pool_rows, (e_n,), generator=gen,
                           device=device)
         return params.noise_pool[r], None
@@ -206,17 +211,27 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     poses = x[..., [0, 1, 4]]
     vel = x[..., 3]
 
-    # lidar: noisy scan + wall iTTC (+ the opponent ray cast) from the scan
-    # megakernel
+    # lidar: the noisy scan and the wall iTTC (pre-opponent scan), from the
+    # megakernel or a fused edge epilogue (with the opponent ray cast where
+    # it rides the kernel), or from the clean scan plus the eager noise add
+    # and iTTC check, as the JAX package orders them
     noise, pool_off = _noise_rows(cfg, params, x.shape[0], gen)
     verts = col.get_vertices(poses, p.length, p.width)
+    mega = scan_fast.use_megakernel(cfg)
     opp = None
-    if scan_fast.use_fused_opp_mega(cfg):
+    if scan_fast.use_fused_opp_mega(cfg) if mega else scan_fast.use_fused_opp(cfg):
         opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
-    scans, hit01 = scan_fast.trace_fast_mxu(
-        poses, params.tables, params.tmap, params.rtex, cfg,
-        fused_ttc=(noise, vel), opp=opp, pool_off=pool_off, pregeo=pregeo)
-    ttc_hit = (hit01 > 0) & (vel != 0.0)
+    if mega or scan_fast.use_fused_ttc(cfg):
+        scans, hit01 = scan_fast.trace_fast_mxu(
+            poses, params.tables, params.tmap, params.rtex, cfg,
+            fused_ttc=(noise, vel), opp=opp, pool_off=pool_off, pregeo=pregeo)
+        ttc_hit = (hit01 > 0) & (vel != 0.0)
+    else:
+        scans = scan_fast.trace_fast_mxu(poses, params.tables, params.tmap,
+                                         params.rtex, cfg)
+        if cfg.scan_noise_std > 0:
+            scans = scans + noise.to(scans.dtype)[:, None, :]
+        ttc_hit = agent_scan.check_ttc(scans, vel, params.tables, cfg.ttc_thresh)
 
     # pairwise body collision (base_classes.py:529-543)
     body_hits = col.pairwise_hits_from_poses(poses, p.length, p.width).to(x.dtype)

@@ -111,7 +111,7 @@ def mega_edge_ttc_reference(rt, rows, scal, fmat, fmat_sw, shift1, gmat,
     torch.matmul, so on a CUDA device TF32 must be off for float32."""
     T = t_bins
     cd = fmat.dtype
-    k_n, b_n = rows.shape[0], c_frac.shape[0]
+    k_n = rows.shape[0]
     raw = rt[rows.long()]
     R, e, w, gx, gy = (raw[:, i * T:(i + 1) * T].to(cd) for i in range(5))
     dxc, dyc, fsc, iic, inbc, velc = (scal[:, i:i + 1].to(cd) for i in range(6))
@@ -153,17 +153,40 @@ def mega_edge_ttc_reference(rt, rows, scal, fmat, fmat_sw, shift1, gmat,
 
     sr, se, sw = rolled(rr_c), rolled(e), rolled(w)
     wsum = inbc * torch.clamp(R[:, 0:1] * 1e3, max=1.0)
+    out = edge_render_reference(sr, se, sw, fsc, wsum, gmat, c_frac, max_range,
+                                ew_dtype)
+    if pool_off is not None:
+        noise = noise[pool_rot_rows(k_n // agents_per_env, noise.shape[0], pool_off)]
+    out, hit = noise_ttc_reference(out, noise, velc, cosines, side_dist,
+                                   ttc_thresh, agents_per_env)
+    if opp is not None:
+        out = opp_cast_reference(out, opp.to(cd), cosines, sines)
+    return out, hit
 
+
+def edge_render_reference(spec_r, spec_e, spec_w, f_s, wsum, gmat, c_frac,
+                          max_range: float, ew_dtype):
+    """The edge-ramp render from rolled spectra (the TPU kernels'
+    _edge_render_tile), shared by the megakernel's twin and the edge
+    kernels' twins: three range taps spec_r @ gmat, four e/w taps whose
+    inputs (spectra and gmat's first two blocks) are rounded to
+    ``ew_dtype`` and multiplied and summed in the compute dtype (a
+    bf16 x bf16 -> float32 product; the tap outputs are not rounded),
+    then the ramp through the active bin pair, the validity mask and the
+    clip.  spec_* (K, T), f_s and wsum (K, 1), gmat (T, 3B), c_frac (B,)
+    -> (K, B)."""
+    cd = spec_r.dtype
+    b_n = c_frac.shape[0]
     g0m, g1m, g2m = gmat[:, :b_n], gmat[:, b_n:2 * b_n], gmat[:, 2 * b_n:]
-    g0, g1, g2 = sr @ g0m, sr @ g1m, sr @ g2m
+    g0, g1, g2 = spec_r @ g0m, spec_r @ g1m, spec_r @ g2m
 
     def ew(v):   # the ew_dtype input rounding of a bf16 x bf16 -> f32 product
         return v.to(ew_dtype).to(cd)
 
-    se, sw, g0b, g1b = ew(se), ew(sw), ew(g0m), ew(g1m)
+    se, sw, g0b, g1b = ew(spec_e), ew(spec_w), ew(g0m), ew(g1m)
     e_a, e_b, w_a, w_b = se @ g0b, se @ g1b, sw @ g0b, sw @ g1b
 
-    alpha = fsc + c_frac[None, :]
+    alpha = f_s + c_frac[None, :]
     lt = alpha < 1.0
     frac = alpha - torch.floor(alpha)
     ga = torch.where(lt, g0, g1)
@@ -173,19 +196,24 @@ def mega_edge_ttc_reference(rt, rows, scal, fmat, fmat_sw, shift1, gmat,
     aa = torch.clamp((frac - (e_sel - 0.5 * w_sel)) / w_sel, 0.0, 1.0)
     out = ga + aa * (gb - ga)
     out = torch.where(wsum > 0.0, out, torch.zeros_like(out))
-    out = torch.clamp(out, 0.0, max_range)
+    return torch.clamp(out, 0.0, max_range)
 
-    if pool_off is not None:
-        noise = noise[pool_rot_rows(k_n // agents_per_env, noise.shape[0], pool_off)]
+
+def noise_ttc_reference(out, noise, vel, cosines, side_dist, ttc_thresh: float,
+                        agents_per_env: int):
+    """The noise add and wall-iTTC test of the fused kernels (the TPU
+    kernels' _noise_ttc_tile): row k of out (K, B) gets row k //
+    agents_per_env of noise (K / agents_per_env, B); then the sign-split
+    iTTC test against vel (K, 1) over the B beams.  -> (noisy out,
+    hit (K,) 0/1 in out's dtype)."""
+    k_n, b_n = out.shape
     out = (out.reshape(-1, agents_per_env, b_n)
-           + noise.to(cd)[:, None, :]).reshape(k_n, b_n)
-    pv = velc * cosines[None, :]
+           + noise.to(out.dtype)[:, None, :]).reshape(k_n, b_n)
+    pv = vel * cosines[None, :]
     num = out - side_dist[None, :]
     hit = (((pv > 0.0) & (num >= 0.0) & (num < ttc_thresh * pv))
            | ((pv < 0.0) & (num <= 0.0) & (num > ttc_thresh * pv)))
-    if opp is not None:
-        out = opp_cast_reference(out, opp.to(cd), cosines, sines)
-    return out, hit.any(dim=1).to(cd)
+    return out, hit.any(dim=1).to(out.dtype)
 
 
 @functools.lru_cache(maxsize=None)

@@ -84,10 +84,13 @@ def dynamics_chain(cfg: SimConfig, p: VehicleParams, x, steer_buf, steer_cnt,
 def supported(cfg: SimConfig, params) -> bool:
     """True iff the state kernel covers this config and these params
     (pallas_state.supported): fast scan, nearest1, float32, steer delay 2,
-    the default PID, one map, and a scalar for every vehicle parameter."""
+    the default PID, the megakernel resolving on (it alone reads the
+    kernel's per-row operands), one map, and a scalar for every vehicle
+    parameter."""
     return (cfg.scan_mode == "fast" and cfg.rt_spatial == "nearest1"
             and cfg.dtype == "float32" and cfg.steer_delay == 2
-            and cfg.speed_controller is None and params.rtex is not None
+            and cfg.speed_controller is None and scan_fast.use_megakernel(cfg)
+            and params.rtex is not None
             and params.rtex.rt.dim() == 2
             and all(getattr(params.vehicle, f).dim() == 0
                     for f in VehicleParams._fields))

@@ -162,26 +162,97 @@ def test_kernel_rejects_what_it_cannot_take(gpu_params):
         state_kernels.prestep(cfg, params._replace(state_pack=None), *args)
 
 
-@pytest.mark.parametrize("noise_mode", ["pool", "fresh", "pool_rot", "eager"])
-def test_env_step_on_gpu_matches_cpu(gpu_params, noise_mode):
-    """One reset + 5 steps on the GPU (kernels) and the CPU (plain twins)
-    from identical inputs.  The generators of the two devices differ, so
-    "pool" and "pool_rot" run on a pool whose rows are all equal (bfloat16
-    noise in the kernel) and "fresh" runs without noise (float32 noise in
-    the kernel).  "eager" is the pool config with the state kernel and the
-    fused opponent cast off."""
-    _, params_g = gpu_params
-    eager = noise_mode == "eager"
-    noise_mode = "pool" if eager else noise_mode
-    cfg = SimConfig(num_agents=2, num_beams=1080, scan_mode="fast",
-                    rt_pose_stride=8, ttc_thresh=0.5, noise_mode=noise_mode,
-                    scan_noise_std=0.0 if noise_mode == "fresh" else 0.01,
-                    rt_ew_dtype="bfloat16",
-                    state_kernel="off" if eager else "auto",
-                    fuse_scan_opp="off" if eager else "auto")
-    row = 0.01 * torch.randn((1, cfg.num_beams), generator=torch.Generator().manual_seed(1))
-    pool = row.expand(cfg.noise_pool_rows, -1).to(torch.bfloat16)
+BLEND_CASES = (
+    [("theta_shuffle_blend", None, None, a) for a in (1, 2, 3)]
+    + [("theta_shuffle_blend_edge", ew, None, a)
+       for ew in ("bfloat16", "float32") for a in (1, 2, 3)]
+    + [(name, ew, nd, a)
+       for name, agents in (("theta_shuffle_blend_edge_ttc", (1, 2, 3)),
+                            ("theta_shuffle_blend_edge_ttc_opp", (2, 3)))
+       for ew in ("bfloat16", "float32") for nd in ("bfloat16", "float32")
+       for a in agents])
 
+
+@pytest.mark.parametrize("name, ew, noise_dtype, agents", BLEND_CASES,
+                         ids=lambda v: str(v))
+def test_blend_kernels_match_plain_twin(gpu_params, name, ew, noise_dtype, agents):
+    """Each epilogue kernel against its twin on the bilinear config's rolled
+    spectra of 1001 envs (a partial last block), cars within 2.5 m, over
+    e/w tap dtype, noise storage dtype and agent count."""
+    from chip_smoke import blend_operands
+    from red_gym_tpu_torch.ops import blend_kernels
+
+    cfg, params = gpu_params
+    cfg = dataclasses.replace(cfg, num_agents=agents, rt_spatial="bilinear")
+    dev = params.rtex.rt.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    poses = (close_poses(params, 1001, agents, gen) if agents > 1
+             else random_free_poses(params, 1001, gen)[:, None])
+    kw = blend_operands(cfg, params, poses, gen)[name]
+    if ew is not None:
+        kw["ew_dtype"] = getattr(torch, ew)
+    if noise_dtype is not None:
+        kw["noise"] = kw["noise"].to(getattr(torch, noise_dtype))
+    kernel = getattr(blend_kernels, name)
+    before = kernel.launches
+    got = kernel(**kw)
+    assert kernel.launches == before + 1
+    want = getattr(blend_kernels, name + "_reference")(**kw)
+    torch.cuda.synchronize()
+    out, ref = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+    err = (out - ref).abs()
+    assert torch.isfinite(out).all()
+    assert float(torch.quantile(err.flatten(), 0.99)) < 1e-3
+    assert float((err > 4 * float(params.rtex.cell)).float().mean()) < 2e-3
+    if isinstance(got, tuple):
+        assert torch.equal(got[1], want[1])
+        assert got[1].sum() > 0, "fixture guard: no iTTC hits"
+    if name.endswith("_opp"):
+        base, _ = blend_kernels.theta_shuffle_blend_edge_ttc_reference(
+            **{k: v for k, v in kw.items() if k not in ("sines", "opp")})
+        assert (out < base - 1e-6).any(), "fixture guard: no beam shortened"
+
+
+def test_blend_kernels_reject_what_they_cannot_take(gpu_params):
+    from chip_smoke import blend_operands
+    from red_gym_tpu_torch.ops import blend_kernels
+
+    cfg, params = gpu_params
+    dev = params.rtex.rt.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ops = blend_operands(dataclasses.replace(cfg, rt_spatial="bilinear"), params,
+                         close_poses(params, 8, 2, gen), gen)
+    kw = ops["theta_shuffle_blend_edge_ttc_opp"]
+    fn = blend_kernels.theta_shuffle_blend_edge_ttc_opp
+    for key, bad, match in [
+            ("spec_r", kw["spec_r"].double(), "spec must be float32"),
+            ("vel", kw["vel"].half(), "vel must be float32"),
+            ("noise", kw["noise"].half(), "noise must be bfloat16 or float32"),
+            ("ew_dtype", torch.float16, "ew_dtype must be")]:
+        with pytest.raises(ValueError, match=match):
+            fn(**{**kw, key: bad})
+    wide = torch.zeros((16, 256), device=dev)
+    with pytest.raises(ValueError, match="rt_theta_bins=128"):
+        blend_kernels.theta_shuffle_blend(wide, kw["f_s"], kw["wsum"],
+                                          torch.zeros((256, 3 * 1080), device=dev),
+                                          kw["c_frac"], 30.0)
+    # 1000 opponents need 320 KB of shared memory a block: refused, and said so
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fn(**{**kw, "opp": torch.zeros((16, 10_000), device=dev)})
+    # the unfused scan's float32 matrix products refuse TF32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        poses = close_poses(params, 8, 2, gen)
+        with pytest.raises(RuntimeError, match="full float32 matrix products"):
+            scan_fast.trace_fast_mxu(poses, params.tables, params.tmap, params.rtex,
+                                     dataclasses.replace(cfg, rt_spatial="bilinear"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _steps_gpu_and_cpu(cfg, params_g, pool):
+    """One reset + 5 steps on the GPU (kernels) and on the CPU (plain twins)
+    from identical inputs and noise pool -> {device: (x, scans, collisions)}."""
     def on(dev):
         def move(v):
             if v is None:
@@ -204,6 +275,58 @@ def test_env_step_on_gpu_matches_cpu(gpu_params, noise_mode):
         for i in range(5):
             s, o, *_ = rollout.batched_step(cfg, params, s, actions[i].to(dev), gen)
         out[dev] = (s.x.cpu(), o.scans.cpu(), s.collisions.cpu())
+    return out
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "bilinear_ttc_off", "legacy"])
+def test_unfused_env_step_on_gpu_matches_cpu(gpu_params, mode):
+    """The unfused scan's modes: bilinear (kernel 4), bilinear with
+    fuse_scan_ttc="off" (kernel 6) and legacy (kernel 7, on the range
+    channel of the texture) on the GPU against the CPU twins, on an
+    all-equal bf16 pool."""
+    from red_gym_tpu_torch.ops import blend_kernels
+
+    _, params_g = gpu_params
+    kw = dict(bilinear={}, bilinear_ttc_off=dict(fuse_scan_ttc="off"),
+              legacy=dict(rt_occlusion="off", rt_grad=False))[mode]
+    cfg = SimConfig(num_agents=2, num_beams=1080, scan_mode="fast", rt_pose_stride=8,
+                    ttc_thresh=0.5, rt_spatial="bilinear", rt_ew_dtype="bfloat16", **kw)
+    if mode == "legacy":
+        params_g = params_g._replace(rtex=params_g.rtex._replace(
+            rt=params_g.rtex.rt[:, :cfg.rt_theta_bins].contiguous()))
+    row = 0.01 * torch.randn((1, cfg.num_beams), generator=torch.Generator().manual_seed(1))
+    pool = row.expand(cfg.noise_pool_rows, -1).to(torch.bfloat16)
+    blend_kernels.reset_launches()
+    out = _steps_gpu_and_cpu(cfg, params_g, pool)
+    assert sum(fn.launches for fn in blend_kernels.KERNELS) == 6
+    x_g, scan_g, coll_g = out["cuda"]
+    x_c, scan_c, coll_c = out["cpu"]
+    torch.testing.assert_close(x_g, x_c, rtol=0, atol=1e-4)
+    err = (scan_g - scan_c).abs()
+    assert float(torch.quantile(err.flatten(), 0.99)) < 1e-3
+    assert torch.equal(coll_g, coll_c)
+
+
+@pytest.mark.parametrize("noise_mode", ["pool", "fresh", "pool_rot", "eager"])
+def test_env_step_on_gpu_matches_cpu(gpu_params, noise_mode):
+    """One reset + 5 steps on the GPU (kernels) and the CPU (plain twins)
+    from identical inputs.  The generators of the two devices differ, so
+    "pool" and "pool_rot" run on a pool whose rows are all equal (bfloat16
+    noise in the kernel) and "fresh" runs without noise (float32 noise in
+    the kernel).  "eager" is the pool config with the state kernel and the
+    fused opponent cast off."""
+    _, params_g = gpu_params
+    eager = noise_mode == "eager"
+    noise_mode = "pool" if eager else noise_mode
+    cfg = SimConfig(num_agents=2, num_beams=1080, scan_mode="fast",
+                    rt_pose_stride=8, ttc_thresh=0.5, noise_mode=noise_mode,
+                    scan_noise_std=0.0 if noise_mode == "fresh" else 0.01,
+                    rt_ew_dtype="bfloat16",
+                    state_kernel="off" if eager else "auto",
+                    fuse_scan_opp="off" if eager else "auto")
+    row = 0.01 * torch.randn((1, cfg.num_beams), generator=torch.Generator().manual_seed(1))
+    pool = row.expand(cfg.noise_pool_rows, -1).to(torch.bfloat16)
+    out = _steps_gpu_and_cpu(cfg, params_g, pool)
     x_g, scan_g, coll_g = out["cuda"]
     x_c, scan_c, coll_c = out["cpu"]
     torch.testing.assert_close(x_g, x_c, rtol=0, atol=1e-4)

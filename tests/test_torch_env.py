@@ -54,11 +54,18 @@ def _scan_bar(a, b, cell):
 
 
 def _setup(cfg_kw):
-    torch.set_num_threads(2)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
         cfg_j = JSimConfig(**cfg_kw)
         jp = jenv.make_params(cfg_j, assets.named_map_yaml(TRACK))
+    return _setup_from(cfg_j, jp, TSimConfig(**cfg_kw))
+
+
+def _setup_from(cfg_j, jp, cfg_t):
+    """(cfg_j, jp, cfg_t, tp, poses, actions): JAX params with an all-equal
+    bf16 noise pool, the port's params carried across from them, waypoint
+    start poses and numpy actions."""
+    torch.set_num_threads(2)
     rng = np.random.default_rng(0)
     row = rng.normal(0.0, 0.01, (1, B)).astype(np.float32)
     pool = np.repeat(row, cfg_j.noise_pool_rows, axis=0)
@@ -68,7 +75,6 @@ def _setup(cfg_kw):
         jp = jp._replace(tables=jp.tables._replace(
             noise_pool_ext=jnp.asarray(ext).astype(jnp.bfloat16)))
 
-    cfg_t = TSimConfig(**cfg_kw)
     tp = interop.params_from_numpy(
         cfg_t, _leaves(jp.vehicle), _leaves(jp.tables), _leaves(jp.tmap),
         _leaves(jp.rtex), np.asarray(jp.noise_pool))
@@ -185,15 +191,55 @@ def test_f110env_reset_and_step(tmp_path, monkeypatch):
     assert os.listdir(tmp_path), "texture cache not written"
 
 
+def _kw_id(v):
+    return v if isinstance(v, str) else ",".join(f"{k}={x}" for k, x in v.items())
+
+
 @pytest.mark.parametrize("kw, item", [
     (dict(scan_mode="exact"), "the exact scan"),
-    (dict(scan_interp="spectral"), "the other scan modes"),
-    (dict(rt_spatial="bilinear"), "the other scan modes"),
-    (dict(rt_occlusion="off"), "the other scan modes"),
-    (dict(dtype="float64"), "the other scan modes"),
-    (dict(scan_megakernel="off"), "kernels 3-7"),
-], ids=lambda v: v if isinstance(v, str) else ",".join(f"{k}={x}" for k, x in v.items()))
+    (dict(scan_interp="spectral"), "kernel 5"),
+    (dict(dtype="float64"), "the float64 fast scan"),
+    (dict(scan_backend="xla"), "scan_backend='xla'"),
+], ids=_kw_id)
 def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
     cfg = TSimConfig(**{**dict(scan_mode="fast", num_beams=B), **kw})
     with pytest.raises(NotImplementedError, match=item):
         tenv.make_params(cfg, assets.named_map_yaml(TRACK))
+
+
+@pytest.mark.parametrize("kw, knob", [
+    (dict(rt_occlusion="off", fuse_scan_ttc="on"), "fuse_scan_ttc='on'"),
+    (dict(rt_spatial="bilinear", fuse_scan_ttc="off", fuse_scan_opp="on"),
+     "fuse_scan_opp='on'"),
+    (dict(rt_spatial="bilinear", scan_megakernel="on"), "scan_megakernel='on'"),
+], ids=_kw_id)
+def test_kernel_knob_on_out_of_scope_raises(kw, knob):
+    cfg = TSimConfig(**{**dict(scan_mode="fast", num_beams=B), **kw})
+    with pytest.raises(ValueError, match=knob):
+        tenv.make_params(cfg, assets.named_map_yaml(TRACK))
+
+
+@pytest.fixture(scope="module")
+def texture_cache(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("rtex"))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(rt_spatial="bilinear"), dict(rt_occlusion="off"),
+    dict(scan_megakernel="off")], ids=_kw_id)
+def test_ported_modes_build_and_step(kw, texture_cache, monkeypatch):
+    """The modes the unfused scan ports build their params and step: a
+    reset and two steps of 4 envs give finite scans of the right shape."""
+    monkeypatch.setenv("RED_GYM_TPU_TEXTURE_CACHE", texture_cache)
+    cfg = TSimConfig(**{**dict(scan_mode="fast", num_beams=B, rt_pose_stride=8), **kw})
+    params = tenv.make_params(cfg, assets.named_map_yaml(TRACK))
+    assert params.rtex.rt.shape[1] == cfg.rt_channels * cfg.rt_theta_bins
+    poses = torch.as_tensor(np.tile(assets.waypoint_start_poses(TRACK, A)[None],
+                                    (4, 1, 1)), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    state, obs, *_ = trollout.batched_reset(cfg, params, poses, gen)
+    for _ in range(2):
+        state, obs, *_ = trollout.batched_step(
+            cfg, params, state, torch.tensor([0.0, 3.0]).expand(4, A, 2), gen)
+    assert obs.scans.shape == (4, A, B) and torch.isfinite(obs.scans).all()
+    assert float(obs.scans.max()) > 1.0

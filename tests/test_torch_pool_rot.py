@@ -11,7 +11,12 @@ PyTorch twin) and the rollout's reset rotation.
 3. ``rollout.make_rollout``: the k-th env of the whole batch reads row
    (k + off) % rows, and the j-th re-stepped env of the reset step reads
    (j + off') % rows with the reset step's own offset.
+4. Without the megakernel, "pool_rot" picks one pool row per env, as the
+   JAX package does.
 """
+
+import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -87,6 +92,31 @@ def test_pool_rot_twin_matches_jax_kernel(operands, pool):  # noqa: F811
     rows = (np.arange(E) + (OFF & ~15)) % ROWS
     want = np.repeat(pool_np[rows], A, axis=0)
     np.testing.assert_array_equal(t_out.numpy()[dead], want[dead])
+
+
+@pytest.mark.parametrize("kw", [dict(scan_megakernel="off"),
+                                dict(rt_spatial="bilinear")],
+                         ids=["megakernel_off", "bilinear"])
+def test_pool_rot_without_megakernel_picks_one_pool_row_per_env(kw):
+    """Only the megakernel reads the resident pool.  Without it, "pool_rot"
+    hands the scan an (E, B) slab of one pool row per env, as "pool" does
+    and as the JAX package does (red_gym_tpu/env.py:349-361); the same
+    draws give the same rows."""
+    cfg = SimConfig(num_agents=2, num_beams=B, scan_mode="fast",
+                    noise_mode="pool_rot", noise_pool_rows=ROWS, **kw)
+    rng = np.random.default_rng(9)
+    pool = to_tensor(rng.normal(0, 0.01, (ROWS, B)).astype(np.float32)).to(torch.bfloat16)
+    params = tenv.EnvParams(vehicle=None, tables=types.SimpleNamespace(
+        beam_cosines=torch.zeros(B)), tmap=None, noise_pool=pool)
+    noise, off = tenv._noise_rows(cfg, params, E, torch.Generator().manual_seed(4))
+    assert off is None and noise.shape == (E, B) and noise.dtype == torch.bfloat16
+    want, _ = tenv._noise_rows(dataclasses.replace(cfg, noise_mode="pool"), params, E,
+                               torch.Generator().manual_seed(4))
+    assert torch.equal(noise, want)
+    # the megakernel keeps the resident pool and a device offset
+    mega = dataclasses.replace(cfg, scan_megakernel="auto", rt_spatial="nearest1")
+    noise, off = tenv._noise_rows(mega, params, E, torch.Generator())
+    assert noise is pool and off.shape == (1,) and off.dtype == torch.int32
 
 
 def test_rollout_reset_step_rotates_over_the_reset_envs(tmp_path, monkeypatch):

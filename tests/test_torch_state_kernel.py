@@ -167,6 +167,23 @@ def test_state_kernel_scope(port_params):
         state_kernels.prestep(cfg, params, x, buf[..., :1], cnt, act)
 
 
+@pytest.mark.parametrize("kw", [dict(scan_megakernel="off"),
+                                dict(scan_megakernel="auto", rt_occlusion="off")],
+                         ids=["megakernel_off", "occlusion_off"])
+def test_state_kernel_needs_the_megakernel(port_params, kw):
+    """Only the megakernel reads the state kernel's per-row operands, so
+    the state kernel's scope needs the megakernel resolving on
+    (red_gym_tpu/ops/pallas_state.py:192): there "auto" resolves off and
+    "on" raises ValueError (red_gym_tpu/env.py:241-247)."""
+    cfg, params = port_params
+    off = dataclasses.replace(cfg, **kw)
+    assert not state_kernels.supported(off, params)
+    assert not tenv.use_state_kernel(off, params)
+    with pytest.raises(ValueError, match="megakernel resolving on"):
+        tenv.use_state_kernel(dataclasses.replace(off, state_kernel="on"), params)
+    assert tenv.use_state_kernel(dataclasses.replace(cfg, state_kernel="on"), params)
+
+
 def test_pack_params_layout(port_params):
     cfg, params = port_params
     pk = params.state_pack

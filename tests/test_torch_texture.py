@@ -67,6 +67,29 @@ def test_texture_valid_exact_and_rt_close(textures):
                                       np.asarray(getattr(jr, f)), err_msg=f)
 
 
+@pytest.mark.parametrize("occlusion, grad", [("edge", True), ("edge", False),
+                                             ("off", True), ("off", False)],
+                         ids=["edge-grad", "edge", "grad", "range_only"])
+def test_texture_channel_sets_match_jax(textures, occlusion, grad):
+    """Every channel set the scan modes use (5, 3, 3 and 1 channels):
+    ``valid`` exact, rt at the bar above."""
+    kw = dict(CFG_KW, rt_occlusion=occlusion, rt_grad=grad)
+    if (occlusion, grad) == ("edge", True):
+        _, jr, _, tr = textures
+    else:
+        jm, _, tm, _ = textures
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
+            jr = jsf.build_range_texture(jm, JSimConfig(**kw))
+            tr = tsf.build_range_texture(tm, TSimConfig(**kw))
+    assert tr.rt.shape == jr.rt.shape
+    assert tr.rt.shape[1] == TSimConfig(**kw).rt_channels * 128
+    np.testing.assert_array_equal(tr.valid.numpy(), np.asarray(jr.valid))
+    err = np.abs(tr.rt.numpy() - np.asarray(jr.rt))
+    flips = int((err > 1e-9).sum())
+    assert flips <= 1e-3 * err.size, f"{flips} of {err.size} entries differ"
+
+
 def test_step_constants_match_jax_per_call_forms(textures):
     """fmat_sw, shift1 and c_frac, which the JAX package forms on every call
     (scan_fast.py:950-953), are computed once by the port."""
