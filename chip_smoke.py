@@ -16,7 +16,11 @@ line:
    the range texture is marched on the card, and so is the 1-channel
    texture that the legacy and ultra configs read;
 4. kernel phases at K = 16384 envs x 2 agents, each kernel against its
-   plain PyTorch twin on the card, with median CUDA-event times of both:
+   plain PyTorch twin on the card, with median CUDA-event times of both
+   (``median_ms``: R calls back to back between one pair of events, R = 10
+   for calls under 2 ms, so that the wrapper's host time hides behind the
+   card's work as it does on a path; the same for kernel, twin and library
+   call) and the kernel's registers and spill bytes from its ptxas report:
    - mega_edge_ttc, plain, on operands made by the main path's own prep
      from random free poses;
    - mega_edge_ttc with opponents (slab noise), and with opponents and the
@@ -39,7 +43,8 @@ line:
      card's float32 peak and its bytes over the memory rate, from this
      run's operands) and, where one PyTorch call computes its arithmetic,
      that call's median time (kernel 7: spec_r @ gmat; kernel 5:
-     torch.matmul(spec_r, smat); the product only);
+     torch.matmul(spec_r, smat); the product only), and for those two the
+     SM clock and power that nvidia-smi reads while each runs;
 5. main paths, each rollout.batched_reset of 16384 x 2 cars at waypoint
    starts, 10 warm-up steps, then timed make_rollout steps with
    random_policy and auto-reset; every kernel's launch count (set to 0 just
@@ -115,21 +120,42 @@ def nvidia_smi() -> str:
 
 
 def median_ms(fn, reps: int) -> float:
-    """Median of ``reps`` single runs, each timed with CUDA events."""
+    """Time of one call of ``fn``: the median over ``reps`` windows, each of
+    R calls back to back between one pair of CUDA events, divided by R.
+    R = 10 for a call under 2 ms (one call timed alone, after a warm-up
+    call, decides), else 1: the host enqueues the next calls while the card
+    runs, so a wrapper's host time before its launch is not counted in
+    front of an idle card."""
     import torch
 
-    fn()
-    times = []
-    for _ in range(reps):
+    def window(r: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(r):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
+        return start.elapsed_time(end) / r
+
+    fn()
+    r = 10 if window(1) < 2.0 else 1
+    times = sorted(window(r) for _ in range(reps))
     return times[len(times) // 2]
+
+
+def clock_under_load(fn, ms: float, seconds: float = 0.5) -> str:
+    """nvidia-smi's SM clock, its maximum and the power draw, read while
+    ``fn`` (about ``ms`` a call) runs back to back for about ``seconds``."""
+    import torch
+
+    for _ in range(max(1, int(1e3 * seconds / ms))):
+        fn()
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    return proc.stdout.strip().splitlines()[0] if proc.returncode == 0 else "not read"
 
 
 def random_free_poses(params, n: int, gen):
@@ -266,17 +292,42 @@ def bound(flops: float, moved: int) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def timed(label: str, kernel, plain, lims: dict, library=None) -> dict:
+# the kernel function (in ptxas's report of its library) of each kernel
+# record, in the instance the main path launches: bf16 texture and noise,
+# 16-byte copies at B = 1080
+KERNEL_FUNCTIONS = {
+    "mega_edge_ttc": ("mega_edge_ttc", "mega_edge_ttc_kernel<__nv_bfloat16, __nv_bfloat16>"),
+    "prestep": ("prestep", "prestep_kernel"),
+    "theta_shuffle_blend_edge_ttc": ("theta_blend", "theta_blend_kernel<1, __nv_bfloat16>"),
+    "theta_shuffle_blend_edge_ttc_opp": ("theta_blend",
+                                         "theta_blend_kernel<2, __nv_bfloat16>"),
+    "theta_shuffle_blend_edge": ("theta_blend", "theta_blend_kernel<0, float>"),
+    "theta_shuffle_blend": ("theta_blend", "theta_shuffle_blend_kernel<true>"),
+    "theta_spectral_ttc": ("theta_spectral", "theta_spectral_kernel<__nv_bfloat16, true>"),
+}
+
+
+def resources(reports: dict, name: str) -> dict:
+    """{"regs", "spill_bytes"} of kernel record ``name`` (the megakernel's
+    variants share one function) from the ptxas reports {library: report}."""
+    lib, fn = KERNEL_FUNCTIONS[name.split("+")[0]]
+    if fn not in reports[lib]:
+        fail(f"{name}: no {fn} in the ptxas report of {lib}: {sorted(reports[lib])}")
+    return reports[lib][fn]
+
+
+def timed(label: str, kernel, plain, lims: dict, res: dict, library=None) -> dict:
     """Median times of the kernel, its plain twin and, where one PyTorch
-    call computes the kernel's arithmetic, that call, beside the bound."""
+    call computes the kernel's arithmetic, that call, beside the bound and
+    the kernel's registers and spills."""
     ms = median_ms(kernel, TIMING_REPS)
     plain_ms = median_ms(plain, TIMING_REPS)
     library_ms = None if library is None else median_ms(library, TIMING_REPS)
     lib = "" if library is None else f", library call {library_ms:.3f} ms"
     say("kernel", f"{label}: median of {TIMING_REPS}: CUDA kernel {ms:.3f} ms, "
         f"plain PyTorch twin {plain_ms:.3f} ms{lib}; bound {lims['bound_ms']:.4f} ms "
-        f"by {lims['bound_by']}")
-    return {"ms": ms, "plain_ms": plain_ms, **lims, "library_ms": library_ms}
+        f"by {lims['bound_by']}; {res['regs']} registers, {res['spill_bytes']} spill bytes")
+    return {"ms": ms, "plain_ms": plain_ms, **lims, "library_ms": library_ms, **res}
 
 
 def mega_bound(ops, out, hit) -> dict:
@@ -295,7 +346,7 @@ def mega_bound(ops, out, hit) -> dict:
     return bound(flops, moved)
 
 
-def mega_phase(cfg, params, dev) -> dict:
+def mega_phase(cfg, params, dev, reports) -> dict:
     """The megakernel's plain, opp and opp+pool_rot variants against the
     twin; {variant: record fields}."""
     import torch
@@ -317,7 +368,8 @@ def mega_phase(cfg, params, dev) -> dict:
     torch.cuda.synchronize()
     rec = {"plain": {"max_abs_err": scan_bar("plain", out_k, hit_k, out_r, hit_r, cell),
                      **timed("plain", lambda: mega(**ops), lambda: ref(**ops),
-                             mega_bound(ops, out_k, hit_k))}}
+                             mega_bound(ops, out_k, hit_k),
+                             resources(reports, "mega_edge_ttc"))}}
 
     poses = close_poses(params, ENVS, AGENTS, gen)
     verts = collision.get_vertices(poses, params.vehicle.length, params.vehicle.width)
@@ -338,11 +390,12 @@ def mega_phase(cfg, params, dev) -> dict:
             fail(f"{name}: no beam shortened by an opponent")
         rec[name] = {"max_abs_err": err,
                      **timed(name, lambda: mega(**ops), lambda: ref(**ops),
-                             mega_bound(ops, out_k, hit_k))}
+                             mega_bound(ops, out_k, hit_k),
+                             resources(reports, "mega_edge_ttc"))}
     return rec
 
 
-def blend_phase(cfg, params, dev) -> dict:
+def blend_phase(cfg, params, dev, reports) -> dict:
     """The four epilogue kernels against their twins on operands of the
     bilinear config's prep chain, cars within 2.5 m of each other;
     {kernel name: record fields}."""
@@ -379,7 +432,10 @@ def blend_phase(cfg, params, dev) -> dict:
             else None
         rec[name] = {"max_abs_err": err,
                      **timed(name, lambda: kernel(**kw), lambda: twin(**kw),
-                             blend_bound(kw, out_k, hit_k), library)}
+                             blend_bound(kw, out_k, hit_k), resources(reports, name),
+                             library)}
+        if library is not None:
+            under_load(name, lambda: kernel(**kw), library, rec[name])
     return rec
 
 
@@ -418,7 +474,7 @@ def spectral_operands(cfg, params, poses, gen) -> dict:
                 ttc_thresh=cfg.ttc_thresh, agents_per_env=a_n)
 
 
-def spectral_phase(cfg, params, dev) -> dict:
+def spectral_phase(cfg, params, dev, reports) -> dict:
     """Kernel 5 against its twin and torch.matmul(spec_r, smat) on operands
     of the ultra config's prep chain, cars within 2.5 m of each other."""
     import torch
@@ -438,12 +494,26 @@ def spectral_phase(cfg, params, dev) -> dict:
     lims = bound(2.0 * k_n * t_bins * b_n,
                  nbytes(*(kw[n] for n in ("spec_r", "wsum", "vel", "smat", "noise",
                                           "cosines", "side_dist")), out_k, hit_k))
-    return {"max_abs_err": err,
-            **timed("theta_spectral_ttc", lambda: kernel(**kw), lambda: twin(**kw), lims,
-                    lambda: torch.matmul(kw["spec_r"], kw["smat"]))}
+    def library():
+        return torch.matmul(kw["spec_r"], kw["smat"])
+
+    rec = {"max_abs_err": err,
+           **timed("theta_spectral_ttc", lambda: kernel(**kw), lambda: twin(**kw), lims,
+                   resources(reports, "theta_spectral_ttc"), library)}
+    under_load("theta_spectral_ttc", lambda: kernel(**kw), library, rec)
+    return rec
 
 
-def prestep_phase(cfg, params, dev) -> dict:
+def under_load(label: str, kernel, library, rec: dict) -> None:
+    """The card's SM clock and power while the kernel, then its library
+    call, run back to back: the float32 peak assumes the maximum clock."""
+    for who, fn, ms in (("kernel", kernel, rec["ms"]), ("library call", library,
+                                                         rec["library_ms"])):
+        say("kernel", f"{label}: {who} under load: nvidia-smi clocks.sm, clocks.max.sm, "
+            f"power.draw: {clock_under_load(fn, ms)}")
+
+
+def prestep_phase(cfg, params, dev, reports) -> dict:
     """The state kernel against its eager twin on random in-range states."""
     import torch
 
@@ -472,7 +542,8 @@ def prestep_phase(cfg, params, dev) -> dict:
                  nbytes(*args, params.state_pack, *got))
     return {"max_abs_err": max_err,
             **timed("prestep", lambda: state_kernels.prestep(cfg, params, *args),
-                    lambda: state_kernels.prestep_reference(cfg, params, *args), lims)}
+                    lambda: state_kernels.prestep_reference(cfg, params, *args), lims,
+                    resources(reports, "prestep"))}
 
 
 def launch_counts() -> dict:
@@ -611,10 +682,11 @@ def main() -> None:
 
     t0 = time.perf_counter()
     libs = _build.build_all()
+    reports = {name: _build.ptxas_report(lib) for name, lib in libs.items()}
     for name, lib in libs.items():
-        with open(lib + ".log") as f:
-            report = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-        say("build", f"{name} -> {os.path.relpath(lib)}; " + " | ".join(report))
+        say("build", f"{name} -> {os.path.relpath(lib)}; " + " | ".join(
+            f"{fn}: {r['regs']} registers, {r['spill_bytes']} spill bytes"
+            for fn, r in reports[name].items()))
     say("build", f"nvcc build of {len(libs)} kernel(s), in parallel: "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -648,10 +720,10 @@ def main() -> None:
     if ultra.rt_channels != leg_cfg.rt_channels:
         fail("the ultra and legacy configs must read the same texture channels")
 
-    mega = mega_phase(cfg, params, dev)
-    pre = prestep_phase(cfg, params, dev)
-    blend = blend_phase(bil, params, dev)
-    spectral = spectral_phase(ultra, leg_params, dev)
+    mega = mega_phase(cfg, params, dev, reports)
+    pre = prestep_phase(cfg, params, dev, reports)
+    blend = blend_phase(bil, params, dev, reports)
+    spectral = spectral_phase(ultra, leg_params, dev, reports)
 
     # one params serve the configs of one texture: they differ in
     # noise_mode (the pool is built for "pool" and "pool_rot" alike), the

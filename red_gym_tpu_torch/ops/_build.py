@@ -14,6 +14,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -74,6 +75,63 @@ def build(name: str) -> str:
         f.write(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """C++ symbol names through the toolkit's cu++filt (or c++filt)."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tools = [shutil.which("cu++filt"), os.path.join(cuda_home, "bin", "cu++filt"),
+             shutil.which("c++filt")]
+    tool = next((t for t in tools if t and os.path.exists(t)), None)
+    if tool is None:
+        raise RuntimeError("neither cu++filt nor c++filt found to demangle the "
+                           "ptxas report")
+    proc = subprocess.run([tool], input="\n".join(names) + "\n", capture_output=True,
+                          text=True, check=True)
+    return proc.stdout.splitlines()[:len(names)]
+
+
+def ptxas_report(lib: str) -> dict[str, dict]:
+    """Registers and spills of each kernel in a built library, from the
+    ptxas report kept beside it: {kernel: {"regs": n, "spill_bytes": n}},
+    keyed by the demangled name with its template arguments and without
+    its namespace and parameters (``theta_spectral_kernel<float, true>``).
+    ``spill_bytes`` is the bytes of spill stores plus spill loads."""
+    entries, current, props = {}, None, None
+    with open(lib + ".log") as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                current = m.group(1)
+                entries[current] = {"regs": None, "spill_bytes": 0}
+                continue
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                props = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and props == current and current is not None:
+                entries[current]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and current is not None:
+                entries[current]["regs"] = int(m.group(1))
+    return {kernel_name(d): entries[m] for m, d in zip(entries, _demangle(list(entries)))}
+
+
+def kernel_name(demangled: str) -> str:
+    """``void <unnamed>::k<(int)1, (bool)1>(const float *, int)`` (cu++filt)
+    or ``void (anonymous namespace)::k<1, true>(float const*, int)``
+    (c++filt) -> ``k<1, true>``."""
+    depth = 0
+    for i in range(len(demangled) - 1, -1, -1):  # the parameter list's "("
+        depth += {")": 1, "(": -1}.get(demangled[i], 0)
+        if depth == 0:
+            break
+    head = demangled[:i].removeprefix("void ")
+    head = head.replace("<unnamed>::", "").replace("(anonymous namespace)::", "")
+    head = head.replace("(bool)1", "true").replace("(bool)0", "false")
+    return re.sub(r"\((?:unsigned )?(?:int|long)\)(-?\d+)", r"\1", head)
 
 
 def build_all() -> dict[str, str]:

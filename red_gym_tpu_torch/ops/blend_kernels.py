@@ -13,9 +13,10 @@ epilogues of the linear-theta scan without the megakernel
 - ``theta_shuffle_blend_edge_ttc_opp`` (kernel 4, ``_edge_ttc_opp_kernel``):
   kernel 3, then the opponent slab ray cast inside each blocked window.
 
-The CUDA C++ source is ``red_gym_tpu_torch/csrc/theta_blend.cu`` (one
-kernel template, one C entry point; the noise + iTTC tail and the opponent
-cast are in ``csrc/scan_tail.cuh``).  Each function here has the JAX
+The CUDA C++ source is ``red_gym_tpu_torch/csrc/theta_blend.cu`` (kernel
+7's own kernel on the mainloop of ``csrc/rowtile_gemm.cuh``, one template
+for the edge forms, one C entry point; the noise + iTTC tail and the
+opponent cast are in ``csrc/scan_tail.cuh``).  Each function here has the JAX
 signature, with the beam count taken from ``c_frac``: on CUDA tensors it
 launches the kernel or raises (a build, check or launch failure is an
 error, never a fallback), on CPU tensors it runs its plain twin
@@ -32,14 +33,26 @@ x 2), about 0.95 ms at the published 67 TFLOP/s of float32 outside the
 tensor cores; kernel 7 does three, 27.2 GFLOP.  Their bytes are 50 MB of
 spectra in, the 142 MB (K, B) scan out and, for 3 and 4, the 35 MB bf16
 (E, B) noise slab: about 70 us at 3.35 TB/s.  So they are bound by float32
-FMAs, and the taps must stay out of TF32.  The design: one block of 256
-threads per 8 rows stages the rows' spectra (1 or 3 x 128 floats each,
-e/w rounded to bf16 there when ``ew_dtype`` is bfloat16) in shared memory;
-each thread owns beams b, b + 256, ... and sweeps the 128 spectral lanes
-four at a time, so one float4 shared-memory broadcast feeds four FMAs and
-each gmat column read from L2 (1.66 MB, resident) serves 8 rows.  Two
-blocks per SM are pinned (``__launch_bounds__``, 128 registers a thread).
-No tensor cores, no TMA: that is for later work.
+FMAs, and the taps must stay out of TF32.
+
+Kernel 7 is one plain product and an elementwise blend, so it runs on the
+register-tiled mainloop of ``csrc/rowtile_gemm.cuh`` (shared with kernel
+5): a block of 256 threads owns 128 rows and all beams, keeps the rows'
+range spectra in shared memory (read in place from a strided spec[:, 0]
+view) and streams gmat's three taps of the same beams through a 3-stage
+cp.async ring; each thread holds 8 rows x 4 beams x 3 taps of accumulators,
+summed in lane order, and blends them with each operation rounded as the
+twin rounds it.  One block a SM (167 registers a thread).  Its yardstick
+is ``spec_r @ gmat`` (cuBLAS).
+
+The edge forms (6, 3, 4): one block of 256 threads per 8 rows stages the
+rows' three spectra (e/w rounded to bf16 there when ``ew_dtype`` is
+bfloat16) in shared memory; each thread owns beams b, b + 256, ... and
+sweeps the 128 spectral lanes four at a time, so one float4 shared-memory
+broadcast feeds four FMAs and each gmat column read from L2 (1.66 MB,
+resident) serves 8 rows.  Two blocks per SM are pinned
+(``__launch_bounds__``, 128 registers a thread).  Their redesign is ROADMAP
+D's.
 """
 
 from __future__ import annotations

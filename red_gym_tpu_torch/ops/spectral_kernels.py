@@ -25,15 +25,17 @@ is 9.06 GFLOP (2 x K x 128 x B), 0.135 ms at the published 67 TFLOP/s of
 float32 outside the tensor cores; its bytes are the 16.8 MB of spectra,
 the 35.4 MB bf16 (E, B) noise slab and the 141.6 MB (K, B) scan written
 once, about 195 MB or 0.058 ms at 3.35 TB/s.  So float32 FMAs bound it, and
-the product must stay out of TF32.  The design, as ``theta_blend.cu``'s: one
-block of 256 threads per 16 rows stages the rows' spectra in shared memory;
-each thread owns beams b, b + 256, ... and sweeps the 128 spectral lanes
-four at a time, so one float4 shared-memory broadcast feeds four FMAs and
-each smat value read from L2 (553 KB, resident) serves 16 rows; four blocks
-a SM are pinned (``__launch_bounds__``, 64 registers a thread).  No tensor
-cores, no register tiling over beams, no TMA: that is for later work.  The
-work is one plain product, so ``torch.matmul(spec_r, smat)`` (cuBLAS) is
-its yardstick, and it is faster than this kernel.
+the product must stay out of TF32.  The design is the register-tiled
+mainloop of ``csrc/rowtile_gemm.cuh``, shared with kernel 7: a block of 256
+threads owns 128 rows and all beams, keeps the rows' spectra in shared
+memory and streams smat through a 3-stage cp.async ring, 16 lanes a chunk;
+each thread holds 8 rows x 8 beams of accumulators (two float4 of spectra
+and two of smat feed 64 FMAs a lane), summed in lane order, and the noise,
+iTTC and store tail runs on those registers.  Two blocks a SM (127
+registers a thread); the grid is persistent.  The work is one plain
+product, so ``torch.matmul(spec_r, smat)`` (cuBLAS) is its yardstick
+(PERF.md has both times).  Tensor cores would change the rounding of every
+beam (ROADMAP D).
 """
 
 from __future__ import annotations

@@ -11,6 +11,9 @@ packs.  K = 320 rows span two of the JAX kernels' 256-row tiles and
 B = 1080 beams three 384-beam tiles: the fixture requires iTTC hits beyond
 row 256 and in the last beam tile, and an opponent window across a beam
 tile boundary (the TPU kernel offsets its window by the tile's first beam).
+Kernel 7 also runs at K = 322 (161 envs), no multiple of the CUDA kernel's
+128-row tile, and on the strided spec[:, 0] view of (K, 3, T) spectra that
+the CUDA kernel reads in place.
 
 Also ``scan_fast._cells_and_theta`` in its bilinear and nearest forms
 against JAX in float64, and the dispatchers on CPU tensors.
@@ -65,8 +68,8 @@ def close_poses(rng, rtex, tmap, e_n, a_n):
 
 
 @pytest.fixture(scope="module")
-def operands():
-    """Numpy operands of the four kernels, K = E * A rows."""
+def texture():
+    """The bilinear config and its JAX-built texture, carried to the port."""
     torch.set_num_threads(2)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
@@ -74,23 +77,38 @@ def operands():
     cfg = TSimConfig(**CFG_KW)
     tp = interop.params_from_numpy(cfg, _leaves(jp.vehicle), _leaves(jp.tables),
                                    _leaves(jp.tmap), _leaves(jp.rtex), device="cpu")
-    rng = np.random.default_rng(0)
-    poses = torch.from_numpy(close_poses(rng, tp.rtex, tp.tmap, E, A).astype(np.float32))
+    return cfg, tp
+
+
+def _operands(cfg, tp, e_n, seed):
+    """Numpy operands of the four kernels, K = e_n * A rows, and the cell."""
+    rng = np.random.default_rng(seed)
+    poses = torch.from_numpy(close_poses(rng, tp.rtex, tp.tmap, e_n, A).astype(np.float32))
     sp = tsf.rolled_spectra(poses, tp.tmap, tp.rtex, cfg)
-    spec = sp.spec_r.reshape(E * A, 3, T)
+    spec = sp.spec_r.reshape(e_n * A, 3, T)
     verts = collision.get_vertices(poses, tp.vehicle.length, tp.vehicle.width)
     opp = agent_scan.opponent_slab_scalars(poses, verts, tp.tables)
-    noise = rng.normal(0, 0.01, (E, B)).astype(np.float32)
+    noise = rng.normal(0, 0.01, (e_n, B)).astype(np.float32)
     ops = dict(
         spec_r=spec[:, 0].numpy(), spec_e=spec[:, 1].numpy(), spec_w=spec[:, 2].numpy(),
         f_s=sp.f_s.reshape(-1).numpy(), wsum=sp.wsum.reshape(-1).numpy(),
-        vel=rng.uniform(-2, 6, E * A).astype(np.float32),
+        vel=rng.uniform(-2, 6, e_n * A).astype(np.float32),
         gmat=tp.rtex.gmat.numpy(), c_frac=tp.rtex.c_frac.numpy(),
         noise=noise, cosines=tp.tables.beam_cosines.numpy(),
         sines=tp.tables.beam_sines.numpy(), side_dist=tp.tables.side_distances.numpy(),
-        opp=opp.reshape(E * A, -1).numpy())
+        opp=opp.reshape(e_n * A, -1).numpy())
     assert (ops["wsum"] == 0).any() and (ops["wsum"] > 0).mean() > 0.5
     return ops, float(tp.rtex.cell)
+
+
+@pytest.fixture(scope="module")
+def operands(texture):
+    return _operands(*texture, E, 0)
+
+
+@pytest.fixture(scope="module")
+def operands_322(texture):
+    return _operands(*texture, E + 1, 3)
 
 
 def _jax(ops, names, noise_dtype=None):
@@ -123,13 +141,25 @@ OPP_OPS = EDGE + ("vel", "gmat", "c_frac", "noise", "cosines", "sines",
                   "side_dist", "opp")
 
 
-def test_blend_reference_matches_jax_kernel(operands):
-    """Kernel 7 (occlusion off) on the range spectra."""
-    ops, cell = operands
+@pytest.mark.parametrize("rows, layout", [
+    (E * A, "contiguous"), ((E + 1) * A, "contiguous"), (E * A, "strided")],
+    ids=["320", "322", "320-strided"])
+def test_blend_reference_matches_jax_kernel(request, rows, layout):
+    """Kernel 7 (occlusion off) on the range spectra; "strided" passes them
+    as the spec[:, 0] view of the (K, 3, T) spectra (row stride 3T), which
+    must give the twin's result on a contiguous copy bit for bit."""
+    ops, cell = request.getfixturevalue("operands" if rows == E * A else "operands_322")
     names = ("spec_r", "f_s", "wsum", "gmat", "c_frac")
     j = pallas_scan.theta_shuffle_blend(*_jax(ops, names), MAX_RANGE)
-    t = blend_kernels.theta_shuffle_blend_reference(*_torch(ops, names), MAX_RANGE)
-    assert t.shape == (E * A, B) and t.dtype == torch.float32
+    args = _torch(ops, names)
+    t = blend_kernels.theta_shuffle_blend_reference(*args, MAX_RANGE)
+    if layout == "strided":
+        full = torch.from_numpy(np.stack([ops[n] for n in ("spec_r", "spec_e", "spec_w")], 1))
+        view = full[:, 0]
+        assert view.stride() == (3 * T, 1)
+        t_view = blend_kernels.theta_shuffle_blend_reference(view, *args[1:], MAX_RANGE)
+        assert torch.equal(t_view, t)
+    assert t.shape == (rows, B) and t.dtype == torch.float32
     _bar(t, j, cell)
     assert (t.numpy()[ops["wsum"] == 0] == 0).all()
 

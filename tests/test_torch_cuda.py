@@ -9,6 +9,8 @@ megakernel (bfloat16 / float32 texture, bfloat16 pool / float32 fresh
 noise, bfloat16 / float32 e/w taps), its opponent and pool_rot variants for
 2 and 4 agents, row counts that leave a partial block, the state kernel,
 the epilogue kernels and the spectral render kernel against their twins,
+kernels 5 and 7 at row and beam counts around the tiles of
+csrc/rowtile_gemm.cuh (and at B = 1081, their 4-byte-copy instance),
 refused launches and wrong dtypes, and whole env steps on the GPU (default,
 unfused and spectral modes) against the same steps on the CPU.
 """
@@ -367,6 +369,97 @@ def test_spectral_kernel_rejects_what_it_cannot_take(gpu_params):
     with pytest.raises(ValueError, match="rt_theta_bins=128"):
         fn(**{**kw, "spec_r": torch.zeros((16, 256), device=dev),
               "smat": torch.zeros((256, 1080), device=dev)})
+
+
+# The tiles of csrc/rowtile_gemm.cuh: 128 rows a block; 128 beams a tile for
+# kernel 5, 64 for kernel 7.  Row counts near the tile's edges (rounded up
+# to a multiple of agents_per_env), beam counts on both sides of a beam
+# tile, and 1081, which takes the 4-byte-copy instance.
+BM = 128
+EDGE_ROWS = [(-(-k // a) * a, a) for k in (2, BM - 2, BM + 2, 3 * BM + 4) for a in (1, 2, 3)]
+
+
+def _edge_beams(bn):
+    return (1080, 4, bn - 4, bn + 4, 1081)
+
+
+def _synthetic_spectral(k_n, b_n, agents, noise_dtype, seed):
+    """Random operands of kernel 5 whose scans spread over [0, 30] m, with
+    masked rows and moving cars, so that some rows hit and some do not."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    wsum = u(k_n)
+    wsum[::7] = 0.0
+    beams = torch.linspace(-2.35, 2.35, b_n, device="cuda")
+    noise = 0.01 * torch.randn((k_n // agents, b_n), generator=gen, device="cuda")
+    return dict(spec_r=2.0 * u(k_n, 128) - 0.5, wsum=wsum, vel=10.0 * u(k_n) - 2.0,
+                smat=0.5 * u(128, b_n), noise=noise.to(noise_dtype),
+                cosines=torch.cos(beams), side_dist=0.3 * u(b_n), max_range=30.0,
+                ttc_thresh=2.0, agents_per_env=agents)
+
+
+SPECTRAL_EDGES = ([(k, 1080, a, "bfloat16") for k, a in EDGE_ROWS]
+                  + [(3 * BM + 4, b, 2, nd) for b in _edge_beams(128)
+                     for nd in ("bfloat16", "float32")])
+
+
+@pytest.mark.parametrize("k_n, b_n, agents, noise_dtype", SPECTRAL_EDGES,
+                         ids=lambda v: str(v))
+def test_spectral_kernel_tile_edges_match_plain_twin(gpu_params, k_n, b_n, agents,
+                                                     noise_dtype):
+    """Kernel 5 at row and beam counts around its tiles: scans within
+    1e-4 m of the twin, hit flags exactly equal."""
+    from red_gym_tpu_torch.ops import spectral_kernels
+
+    kw = _synthetic_spectral(k_n, b_n, agents, getattr(torch, noise_dtype), k_n + b_n)
+    kernel = spectral_kernels.theta_spectral_ttc
+    before = kernel.launches
+    out, hit = kernel(**kw)
+    assert kernel.launches == before + 1
+    ref, ref_hit = spectral_kernels.theta_spectral_ttc_reference(**kw)
+    torch.cuda.synchronize()
+    assert out.shape == (k_n, b_n) and torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert torch.equal(hit, ref_hit)
+    if k_n >= BM - 2:
+        assert 0 < int(hit.sum()) < k_n, "fixture guard: hits and misses"
+
+
+BLEND_EDGES = ([(k, 1080, True) for k in sorted({k for k, _ in EDGE_ROWS})]
+               + [(3 * BM + 4, b, strided) for b in _edge_beams(64)
+                  for strided in (False, True)])
+
+
+@pytest.mark.parametrize("k_n, b_n, strided", BLEND_EDGES, ids=lambda v: str(v))
+def test_blend_kernel_tile_edges_match_plain_twin(gpu_params, k_n, b_n, strided):
+    """Kernel 7 at row and beam counts around its tiles, on contiguous
+    spectra and on the strided spec[:, 0] view of (K, 3, T) spectra (row
+    stride 3T, read in place): within 1e-4 m of the twin."""
+    from red_gym_tpu_torch.ops import blend_kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(k_n * 3 + b_n)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    spec = 2.0 * u(k_n, 3, 128) - 0.5
+    wsum = u(k_n)
+    wsum[::5] = 0.0
+    kw = dict(spec_r=spec[:, 0] if strided else spec[:, 0].contiguous(),
+              f_s=0.999 * u(k_n), wsum=wsum, gmat=0.5 * u(128, 3 * b_n), c_frac=u(b_n),
+              max_range=30.0)
+    kernel = blend_kernels.theta_shuffle_blend
+    before = kernel.launches
+    out = kernel(**kw)
+    assert kernel.launches == before + 1
+    ref = blend_kernels.theta_shuffle_blend_reference(**kw)
+    torch.cuda.synchronize()
+    assert out.shape == (k_n, b_n) and torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert (out[wsum == 0] == 0).all()
 
 
 @pytest.mark.parametrize("fuse_scan_ttc", ["auto", "off"])

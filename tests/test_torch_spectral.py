@@ -10,7 +10,8 @@ identical numpy operands: the spectra that the port's prep chain
 texture of track_0019 at stride 8), for 160 envs x 2 cars near each other,
 with numpy speeds and noise.  K = 320 rows span two of the JAX kernel's
 256-row tiles and B = 1080 beams three 384-beam tiles; the fixture requires
-iTTC hits beyond row 256 and in the last beam tile.
+iTTC hits beyond row 256 and in the last beam tile.  K = 322 (161 envs) is
+no multiple of the CUDA kernel's 128-row tile either.
 
 Bar: max |diff scan| <= 1e-4 m (float32 sums of 128 terms in another
 order), hit flags exactly equal, at least one hit and one miss among moving
@@ -45,8 +46,8 @@ def _leaves(nt):
 
 
 @pytest.fixture(scope="module")
-def operands():
-    """Numpy operands of kernel 5, K = E * A rows."""
+def texture():
+    """The ultra config and its JAX-built texture, carried to the port."""
     torch.set_num_threads(2)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
@@ -55,18 +56,33 @@ def operands():
     tp = interop.params_from_numpy(cfg, _leaves(jp.vehicle), _leaves(jp.tables),
                                    _leaves(jp.tmap), _leaves(jp.rtex), device="cpu")
     assert tp.rtex.rt.shape[1] == T, "the ultra config reads a 1-channel texture"
-    rng = np.random.default_rng(1)
-    poses = torch.from_numpy(close_poses(rng, tp.rtex, tp.tmap, E, A).astype(np.float32))
+    return cfg, tp
+
+
+def _operands(cfg, tp, e_n, seed):
+    """Numpy operands of kernel 5, K = e_n * A rows."""
+    rng = np.random.default_rng(seed)
+    poses = torch.from_numpy(close_poses(rng, tp.rtex, tp.tmap, e_n, A).astype(np.float32))
     sp = tsf.rolled_spectra(poses, tp.tmap, tp.rtex, cfg)
-    ops = dict(spec_r=sp.spec_r.reshape(E * A, T).numpy(),
+    ops = dict(spec_r=sp.spec_r.reshape(e_n * A, T).numpy(),
                wsum=sp.wsum.reshape(-1).numpy(),
-               vel=rng.uniform(-2, 6, E * A).astype(np.float32),
+               vel=rng.uniform(-2, 6, e_n * A).astype(np.float32),
                smat=tp.rtex.smat.numpy(),
-               noise=rng.normal(0, 0.01, (E, B)).astype(np.float32),
+               noise=rng.normal(0, 0.01, (e_n, B)).astype(np.float32),
                cosines=tp.tables.beam_cosines.numpy(),
                side_dist=tp.tables.side_distances.numpy())
     assert (ops["wsum"] == 0).any() and (ops["wsum"] > 0).mean() > 0.5
     return ops
+
+
+@pytest.fixture(scope="module")
+def operands(texture):
+    return _operands(*texture, E, 1)
+
+
+@pytest.fixture(scope="module")
+def operands_322(texture):
+    return _operands(*texture, E + 1, 2)
 
 
 def _jax(ops, noise_dtype):
@@ -82,13 +98,15 @@ def _torch(ops, noise_dtype):
             for n in NAMES]
 
 
-@pytest.mark.parametrize("noise", ["float32", "bfloat16"])
-def test_twin_matches_jax_kernel(operands, noise):
-    ops = operands
+@pytest.mark.parametrize("noise, rows", [
+    pytest.param(n, k, id=n if k == E * A else f"{n}-{k}")
+    for k in (E * A, (E + 1) * A) for n in ("float32", "bfloat16")])
+def test_twin_matches_jax_kernel(request, noise, rows):
+    ops = request.getfixturevalue("operands" if rows == E * A else "operands_322")
     j_out, j_hit = pallas_scan.theta_spectral_ttc(*_jax(ops, noise), MAX_RANGE, TTC, A)
     t_out, t_hit = spectral_kernels.theta_spectral_ttc_reference(
         *_torch(ops, noise), MAX_RANGE, TTC, A)
-    assert t_out.shape == (E * A, B) and t_out.dtype == torch.float32
+    assert t_out.shape == (rows, B) and t_out.dtype == torch.float32
     assert float(np.abs(t_out.numpy() - np.asarray(j_out)).max()) <= 1e-4
     np.testing.assert_array_equal(t_hit.numpy(), np.asarray(j_hit))
     moving = ops["vel"] != 0
