@@ -254,7 +254,8 @@ def scan_bar(label: str, out_k, hit_k, out_r, hit_r, cell: float) -> float:
     err = (out_k - out_r).abs()
     flat = err.flatten().sort().values
     p99 = float(flat[int(0.99 * (flat.numel() - 1))])
-    far = float((err > 4 * cell).float().mean())
+    n_far = int((err > 4 * cell).sum())
+    far = n_far / err.numel()
     max_err = float(err.max())
     hits = ""
     if hit_r is not None:
@@ -262,7 +263,7 @@ def scan_bar(label: str, out_k, hit_k, out_r, hit_r, cell: float) -> float:
         hit_diff = int((hit_k != hit_r).sum())
         hits = f", {n_hits} hit rows, {hit_diff} hit mismatches"
     say("kernel", f"{label}: K={out_k.shape[0]} B={out_k.shape[1]}: p99 |diff| "
-        f"{p99:.3e} m, max {max_err:.3e} m, {100 * far:.4f}% beams > 4 cells{hits}")
+        f"{p99:.3e} m, max {max_err:.3e} m, {n_far} beams ({100 * far:.4f}%) > 4 cells{hits}")
     if not torch.isfinite(out_k).all():
         fail(f"{label}: kernel scan has non-finite values")
     if p99 >= P99_TOL or far >= FAR_FRAC_TOL:
@@ -293,10 +294,16 @@ def bound(flops: float, moved: int) -> dict:
 
 
 # the kernel function (in ptxas's report of its library) of each kernel
-# record, in the instance the main path launches: bf16 texture and noise,
-# 16-byte copies at B = 1080
+# record, in the instance its path launches: bf16 texture and noise, 16-byte
+# copies at B = 1080; each megakernel variant is an instance of its own
+# (<opponents, pool_rot, texture type, noise type>)
 KERNEL_FUNCTIONS = {
-    "mega_edge_ttc": ("mega_edge_ttc", "mega_edge_ttc_kernel<__nv_bfloat16, __nv_bfloat16>"),
+    "mega_edge_ttc": ("mega_edge_ttc",
+                      "mega_edge_ttc_kernel<false, false, __nv_bfloat16, __nv_bfloat16>"),
+    "mega_edge_ttc+opp": ("mega_edge_ttc",
+                          "mega_edge_ttc_kernel<true, false, __nv_bfloat16, __nv_bfloat16>"),
+    "mega_edge_ttc+opp+pool_rot": ("mega_edge_ttc",
+                                   "mega_edge_ttc_kernel<true, true, __nv_bfloat16, __nv_bfloat16>"),
     "prestep": ("prestep", "prestep_kernel"),
     "theta_shuffle_blend_edge_ttc": ("theta_blend", "theta_blend_kernel<1, __nv_bfloat16>"),
     "theta_shuffle_blend_edge_ttc_opp": ("theta_blend",
@@ -308,9 +315,9 @@ KERNEL_FUNCTIONS = {
 
 
 def resources(reports: dict, name: str) -> dict:
-    """{"regs", "spill_bytes"} of kernel record ``name`` (the megakernel's
-    variants share one function) from the ptxas reports {library: report}."""
-    lib, fn = KERNEL_FUNCTIONS[name.split("+")[0]]
+    """{"regs", "spill_bytes"} of kernel record ``name`` from the ptxas
+    reports {library: report}."""
+    lib, fn = KERNEL_FUNCTIONS[name]
     if fn not in reports[lib]:
         fail(f"{name}: no {fn} in the ptxas report of {lib}: {sorted(reports[lib])}")
     return reports[lib][fn]
@@ -369,7 +376,7 @@ def mega_phase(cfg, params, dev, reports) -> dict:
     rec = {"plain": {"max_abs_err": scan_bar("plain", out_k, hit_k, out_r, hit_r, cell),
                      **timed("plain", lambda: mega(**ops), lambda: ref(**ops),
                              mega_bound(ops, out_k, hit_k),
-                             resources(reports, "mega_edge_ttc"))}}
+                             mega_resources(reports, "plain", 0))}}
 
     poses = close_poses(params, ENVS, AGENTS, gen)
     verts = collision.get_vertices(poses, params.vehicle.length, params.vehicle.width)
@@ -391,8 +398,19 @@ def mega_phase(cfg, params, dev, reports) -> dict:
         rec[name] = {"max_abs_err": err,
                      **timed(name, lambda: mega(**ops), lambda: ref(**ops),
                              mega_bound(ops, out_k, hit_k),
-                             resources(reports, "mega_edge_ttc"))}
+                             mega_resources(reports, name, opp.shape[-1] // 10))}
     return rec
+
+
+def mega_resources(reports, variant: str, n_opp: int) -> dict:
+    """The registers and spills of a megakernel variant's own instance, and
+    the blocks of it that one SM holds at once."""
+    from red_gym_tpu_torch.ops import scan_kernels
+
+    name = "mega_edge_ttc" if variant == "plain" else f"mega_edge_ttc+{variant}"
+    blocks = scan_kernels.resident_blocks(n_opp, "pool_rot" in variant)
+    say("kernel", f"{variant}: {KERNEL_FUNCTIONS[name][1]}: {blocks} resident block(s) a SM")
+    return {**resources(reports, name), "blocks_per_sm": blocks}
 
 
 def blend_phase(cfg, params, dev, reports) -> dict:
@@ -521,7 +539,8 @@ def prestep_phase(cfg, params, dev, reports) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(2)
     args = random_states(params, (ENVS, AGENTS), gen)
-    got = state_kernels.prestep(cfg, params, *args)
+    pack = state_kernels.pack_params(params.vehicle, params.tmap, params.rtex)
+    got = state_kernels.prestep(cfg, params, *args, pack)
     want = state_kernels.prestep_reference(cfg, params, *args)
     torch.cuda.synchronize()
     names = ("x", "steer_buf", "steer_cnt", "rows", "scal")
@@ -539,9 +558,9 @@ def prestep_phase(cfg, params, dev, reports) -> dict:
         fail(f"prestep: float outputs differ from the twin by {max_err}")
     k_n = ENVS * AGENTS
     lims = bound(float(PRESTEP_OPS_PER_ROW * k_n),
-                 nbytes(*args, params.state_pack, *got))
+                 nbytes(*args, pack, *got))
     return {"max_abs_err": max_err,
-            **timed("prestep", lambda: state_kernels.prestep(cfg, params, *args),
+            **timed("prestep", lambda: state_kernels.prestep(cfg, params, *args, pack),
                     lambda: state_kernels.prestep_reference(cfg, params, *args), lims,
                     resources(reports, "prestep"))}
 

@@ -4,9 +4,11 @@
 // Replaces red_gym_tpu/ops/pallas_scan.py::mega_edge_ttc (_mega_kernel) in
 // all four of its variants: plain, opponents (n_opp > 0, the TPU kernel's
 // _opp_raycast_tile), resident pool (pool_rows > 0, noise_mode="pool_rot"),
-// and both.  The math, row by row, and what bounds it on the H100 are set
-// out in red_gym_tpu_torch/ops/scan_kernels.py, whose
-// mega_edge_ttc_reference is the plain PyTorch version of this kernel.
+// and both; each variant is a template instance of its own (<OPP, POOL,
+// texture type, noise type>), so the plain one carries no opponent code.
+// The math, row by row, and what bounds it on the H100 are set out in
+// red_gym_tpu_torch/ops/scan_kernels.py, whose mega_edge_ttc_reference is
+// the plain PyTorch version of this kernel.
 //
 // One block of THREADS threads handles ROWS consecutive rows (cars):
 //   phase 1  each (row, bin) item reads its texture row directly (the gather
@@ -28,6 +30,9 @@
 // pool_rows > 0, row (g + (*pool_off & ~15)) % pool_rows of the resident
 // (pool_rows, B) pool (2.2 MB at 1024 x 1080 in bf16, held in L2).  The
 // offset is read on the device, so the host never waits for it.
+// Two blocks a SM, pinned by __launch_bounds__(THREADS, MIN_BLOCKS): each
+// thread then has 128 registers, and one block's phases 1-2 run while the
+// other's phase 3 multiplies.
 // No tensor cores: the taps are float32 FMAs, so no TF32 rounding.
 
 #include <cuda_bf16.h>
@@ -43,6 +48,7 @@ constexpr int HALF = T / 2;
 constexpr int CH = 5;         // texture channels [R | e | w | gx | gy]
 constexpr int ROWS = 8;       // rows per block
 constexpr int THREADS = 256;  // threads per block
+constexpr int MIN_BLOCKS = 2; // resident blocks a SM
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr float DTH = TWO_PI / T;  // exact: division by a power of two
 constexpr float INV_TWO_PI = (float)(1.0 / 6.283185307179586);
@@ -106,8 +112,8 @@ __device__ __forceinline__ float opp_hit(const float* p, float cb, float sb) {
   return hit ? t : CUDART_INF_F;
 }
 
-template <typename TexT, typename NoiseT>
-__global__ void __launch_bounds__(THREADS)
+template <bool OPP, bool POOL, typename TexT, typename NoiseT>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
                      const float* __restrict__ scal, const float* __restrict__ fmat,
                      const float* __restrict__ gmat, const float* __restrict__ c_frac,
@@ -162,7 +168,7 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
     xs[r][1][t] = v_e;
     xs[r][2][t] = v_w;
   }
-  const int pack = OPP_PACK * n_opp;
+  const int pack = OPP ? OPP_PACK * n_opp : 0;
   for (int it = tid; it < ROWS * pack; it += THREADS) {
     const int k = row0 + it / pack;
     row_opp[it] = k < K ? opp[(size_t)k * pack + it % pack] : 0.f;
@@ -245,7 +251,7 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
 
   // ---- phase 3: taps, edge-ramp render, noise, iTTC, opponents -------------
   const size_t ld = 3 * (size_t)B;
-  const int off = pool_rows > 0 ? (*pool_off & ~15) : 0;
+  const int off = POOL ? (*pool_off & ~15) : 0;
   for (int b = tid; b < B; b += THREADS) {
     float acc[ROWS][7];
 #pragma unroll
@@ -284,7 +290,7 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
       }
     }
     const float cf = c_frac[b], cb = cosv[b], sd = side[b];
-    const float sb = n_opp > 0 ? sinv[b] : 0.f;
+    const float sb = OPP ? sinv[b] : 0.f;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int k = row0 + r;
@@ -301,7 +307,7 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
       o = row_wsum[r] > 0.f ? o : 0.f;
       o = clampf(o, 0.f, max_range);
       const int g = k / agents_per_env;
-      const size_t nrow = pool_rows > 0 ? (size_t)((g + off) % pool_rows) : (size_t)g;
+      const size_t nrow = POOL ? (size_t)((g + off) % pool_rows) : (size_t)g;
       o += load_f(noise, nrow * B + b);
       const float pv = row_vel[r] * cb;
       const float num = o - sd;
@@ -311,10 +317,11 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
       // opponents shorten the noisy scan after the iTTC test, as the TPU
       // kernel orders it: the wall hit flags come from the pre-opponent scan
       const float bpos = (float)b;
-      for (int q = 0; q < n_opp; ++q) {
-        const float* p = &row_opp[(r * n_opp + q) * OPP_PACK];
-        if (bpos >= p[0] && bpos <= p[1]) o = nan_min(o, opp_hit(p, cb, sb));
-      }
+      if (OPP)
+        for (int q = 0; q < n_opp; ++q) {
+          const float* p = &row_opp[(r * n_opp + q) * OPP_PACK];
+          if (bpos >= p[0] && bpos <= p[1]) o = nan_min(o, opp_hit(p, cb, sb));
+        }
       out[(size_t)k * B + b] = o;
     }
   }
@@ -322,7 +329,10 @@ mega_edge_ttc_kernel(const TexT* __restrict__ rt, const int* __restrict__ rows,
   if (tid < ROWS && row0 + tid < K) hit[row0 + tid] = row_hit[tid] ? 1.f : 0.f;
 }
 
-template <typename TexT, typename NoiseT>
+// dynamic shared memory: the rows' opponent packs
+size_t smem_bytes(int n_opp) { return sizeof(float) * ROWS * OPP_PACK * (size_t)n_opp; }
+
+template <bool OPP, bool POOL, typename TexT, typename NoiseT>
 int launch(const void* rt, const void* rows, const void* scal, const void* fmat,
            const void* gmat, const void* c_frac, const void* noise, const void* cosv,
            const void* side, void* out, void* hit, int K, int B, int agents_per_env,
@@ -330,8 +340,8 @@ int launch(const void* rt, const void* rows, const void* scal, const void* fmat,
            const void* opp, int n_opp, const void* pool_off, int pool_rows,
            cudaStream_t stream) {
   const dim3 grid((K + ROWS - 1) / ROWS), block(THREADS);
-  const size_t smem = sizeof(float) * ROWS * OPP_PACK * (size_t)n_opp;
-  auto kernel = mega_edge_ttc_kernel<TexT, NoiseT>;
+  const size_t smem = smem_bytes(n_opp);
+  auto kernel = mega_edge_ttc_kernel<OPP, POOL, TexT, NoiseT>;
   if (smem > 0) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -352,6 +362,63 @@ int launch(const void* rt, const void* rows, const void* scal, const void* fmat,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool OPP, bool POOL, typename TexT, typename NoiseT>
+int occupancy(int n_opp, int* blocks) {
+  auto kernel = mega_edge_ttc_kernel<OPP, POOL, TexT, NoiseT>;
+  const size_t smem = smem_bytes(n_opp);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// op.run<OPP, POOL, TexT, NoiseT>() of the instance these operands select
+template <bool OPP, bool POOL, class Op>
+int by_storage(int rt_bf16, int noise_bf16, const Op& op) {
+  if (rt_bf16 && noise_bf16) return op.template run<OPP, POOL, __nv_bfloat16, __nv_bfloat16>();
+  if (rt_bf16) return op.template run<OPP, POOL, __nv_bfloat16, float>();
+  if (noise_bf16) return op.template run<OPP, POOL, float, __nv_bfloat16>();
+  return op.template run<OPP, POOL, float, float>();
+}
+template <class Op>
+int by_variant(int n_opp, int pool_rows, int rt_bf16, int noise_bf16, const Op& op) {
+  if (n_opp > 0)
+    return pool_rows > 0 ? by_storage<true, true>(rt_bf16, noise_bf16, op)
+                         : by_storage<true, false>(rt_bf16, noise_bf16, op);
+  return pool_rows > 0 ? by_storage<false, true>(rt_bf16, noise_bf16, op)
+                       : by_storage<false, false>(rt_bf16, noise_bf16, op);
+}
+
+// mega_edge_ttc_launch's arguments
+struct Launch {
+  const void *rt, *rows, *scal, *fmat, *gmat, *c_frac, *noise, *cosv, *side;
+  void *out, *hit;
+  int K, B, agents_per_env;
+  float max_range, ttc_thresh;
+  int ew_bf16;
+  const void *sinv, *opp;
+  int n_opp;
+  const void* pool_off;
+  int pool_rows;
+  cudaStream_t stream;
+  template <bool OPP, bool POOL, typename TexT, typename NoiseT>
+  int run() const {
+    return launch<OPP, POOL, TexT, NoiseT>(rt, rows, scal, fmat, gmat, c_frac, noise, cosv,
+                                          side, out, hit, K, B, agents_per_env, max_range,
+                                          ttc_thresh, ew_bf16, sinv, opp, n_opp, pool_off,
+                                          pool_rows, stream);
+  }
+};
+
+struct Occupancy {
+  int n_opp;
+  int* blocks;
+  template <bool OPP, bool POOL, typename TexT, typename NoiseT>
+  int run() const { return occupancy<OPP, POOL, TexT, NoiseT>(n_opp, blocks); }
+};
+
 }  // namespace
 
 // C entry point, bound with ctypes.  Every pointer is a device pointer; scal
@@ -370,13 +437,17 @@ extern "C" int mega_edge_ttc_launch(const void* rt, int rt_bf16, const void* row
                                     const void* sinv, const void* opp, int n_opp,
                                     const void* pool_off, int pool_rows, void* stream) {
   if (K <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MEGA_ARGS                                                                   \
-  rt, rows, scal, fmat, gmat, c_frac, noise, cosv, side, out, hit, K, B, agents_per_env, \
-      max_range, ttc_thresh, ew_bf16, sinv, opp, n_opp, pool_off, pool_rows, s
-  if (rt_bf16 && noise_bf16) return launch<__nv_bfloat16, __nv_bfloat16>(MEGA_ARGS);
-  if (rt_bf16) return launch<__nv_bfloat16, float>(MEGA_ARGS);
-  if (noise_bf16) return launch<float, __nv_bfloat16>(MEGA_ARGS);
-  return launch<float, float>(MEGA_ARGS);
-#undef MEGA_ARGS
+  const Launch op{rt, rows, scal, fmat, gmat, c_frac, noise, cosv, side, out, hit, K, B,
+                  agents_per_env, max_range, ttc_thresh, ew_bf16, sinv, opp, n_opp, pool_off,
+                  pool_rows, static_cast<cudaStream_t>(stream)};
+  return by_variant(n_opp, pool_rows, rt_bf16, noise_bf16, op);
+}
+
+// Blocks of THREADS threads that one SM holds at once of the instance that
+// n_opp, pool_rows, rt_bf16 and noise_bf16 select (as mega_edge_ttc_launch
+// selects it), at its shared memory; returns the CUDA error.
+extern "C" int mega_edge_ttc_occupancy(int n_opp, int pool_rows, int rt_bf16, int noise_bf16,
+                                       int* blocks) {
+  *blocks = 0;
+  return by_variant(n_opp, pool_rows, rt_bf16, noise_bf16, Occupancy{n_opp, blocks});
 }

@@ -55,9 +55,6 @@ class EnvParams(NamedTuple):
     tmap: TrackMap
     rtex: Optional[scan_fast.RangeTexture] = None
     noise_pool: Optional[torch.Tensor] = None  # (rows, B): noise_mode "pool"/"pool_rot"
-    # (32,) vehicle + geometry scalars of the state kernel
-    # (state_kernels.pack_params); rebuild it after replacing vehicle/tmap/rtex
-    state_pack: Optional[torch.Tensor] = None
 
 
 class EnvState(NamedTuple):
@@ -112,8 +109,7 @@ def make_params(cfg: SimConfig, map_yaml_path: str, map_ext: str = ".png",
         dtype=cfg.tdtype, device=device)
     rtex = scan_fast.build_range_texture(tmap, cfg)
     return EnvParams(vehicle=vehicle, tables=tables, tmap=tmap, rtex=rtex,
-                     noise_pool=_make_noise_pool(cfg, device),
-                     state_pack=state_kernels.pack_params(vehicle, tmap, rtex))
+                     noise_pool=_make_noise_pool(cfg, device))
 
 
 def _make_noise_pool(cfg: SimConfig, device):
@@ -207,9 +203,11 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     pregeo = None
     if use_state_kernel(cfg, params):
         # one launch for steer delay, PID, integration, yaw wrap and the
-        # megakernel's per-row operands
+        # megakernel's per-row operands; its scalar pack is built from these
+        # params at every step (JAX: pallas_state.pack_rows in sim_step)
+        pack = state_kernels.pack_params(p, params.tmap, params.rtex)
         x, steer_buf, steer_cnt, rows, scal = state_kernels.prestep(
-            cfg, params, state.x, state.steer_buf, state.steer_cnt, actions)
+            cfg, params, state.x, state.steer_buf, state.steer_cnt, actions, pack)
         pregeo = (rows, scal)
     else:
         x, steer_buf, steer_cnt = state_kernels.dynamics_chain(

@@ -17,7 +17,7 @@ import torch
 from red_gym_tpu_torch.config import SimConfig, VehicleParams, resolve_device
 from red_gym_tpu_torch.env import EnvParams, EnvState
 from red_gym_tpu_torch.maps.loader import TrackMap
-from red_gym_tpu_torch.ops import scan as scan_ops, scan_fast, state_kernels
+from red_gym_tpu_torch.ops import scan as scan_ops, scan_fast
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:
@@ -37,8 +37,7 @@ def params_from_numpy(cfg: SimConfig, vehicle: Mapping, tables: Mapping,
     """EnvParams from the numpy leaves of JAX ``EnvParams`` fields.
 
     ``rtex`` needs rt, valid, hc, wc, cell, fmat, gmat and smat; the port's
-    per-step constants (fmat_sw, shift1, c_frac) and the state kernel's
-    scalar pack are derived here.  ``noise_pool`` serves noise_mode "pool"
+    per-step constants (fmat_sw, shift1, c_frac) are derived here.  ``noise_pool`` serves noise_mode "pool"
     and "pool_rot" alike.  ``tables.noise_pool_ext``, the JAX package's
     wrap-extended pool for "pool_rot", is left out: the port's megakernel
     indexes the pool modulo its row count and needs no extended copy."""
@@ -57,8 +56,7 @@ def params_from_numpy(cfg: SimConfig, vehicle: Mapping, tables: Mapping,
                                       scan_ops.ScanTables._fields
                                       if k != "noise_pool_ext"}),
         tmap=tm, rtex=rtex_t,
-        noise_pool=None if noise_pool is None else t(noise_pool),
-        state_pack=state_kernels.pack_params(veh, tm, rtex_t))
+        noise_pool=None if noise_pool is None else t(noise_pool))
 
 
 def state_from_numpy(state: Mapping, device="cuda") -> EnvState:

@@ -37,11 +37,13 @@ does about that: one block of 256 threads per 8 rows stages the rows'
 rolled spectra (3 x 128 floats each) in shared memory once, then each
 thread owns one beam and sweeps the 128 spectral lanes four at a time, so
 one float4 shared-memory broadcast feeds four FMAs and each gmat column
-read from L2 (1.66 MB, resident) serves 8 rows x 7 taps.  The texture-row
-gather happens inside the kernel (the JAX package gathers in XLA because
-Mosaic cannot), atan2f replaces the TPU's polynomial, and the T/2 column
-rotation of ``fmat_sw`` and the one-lane shift of ``shift1`` are index
-arithmetic instead of matrix products.  The opponent cast adds two
+read from L2 (1.66 MB, resident) serves 8 rows x 7 taps.  Two blocks share
+a SM (``__launch_bounds__(256, 2)``), so one block's float64 rfft runs
+while the other multiplies, and each variant is a kernel instance of its
+own.  The texture-row gather happens inside the kernel (the JAX package
+gathers in XLA because Mosaic cannot), atan2f replaces the TPU's
+polynomial, and the T/2 column rotation of ``fmat_sw`` and the one-lane
+shift of ``shift1`` are index arithmetic instead of matrix products.  The opponent cast adds two
 divisions and a few compares per opponent and beam, negligible next to the
 taps; the rows' packs sit in shared memory.  The resident pool replaces the
 35 MB (E, B) noise slab with reads from a 2.2 MB pool that stays in L2; its
@@ -223,7 +225,23 @@ def _lib():
     lib.mega_edge_ttc_launch.argtypes = [
         p, i, p, p, p, p, p, p, i, p, p, p, p, i, i, i, f, f, i, p, p, i, p, i, p]
     lib.mega_edge_ttc_launch.restype = ctypes.c_int
+    lib.mega_edge_ttc_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.mega_edge_ttc_occupancy.restype = ctypes.c_int
     return lib
+
+
+def resident_blocks(n_opp: int, pool: bool, rt_bf16: bool = True,
+                    noise_bf16: bool = True) -> int:
+    """Blocks per SM the card holds at once of the kernel instance these
+    operands select (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its
+    shared memory): the ``__launch_bounds__`` minimum of two, if registers
+    and shared memory allow it.  Needs the card."""
+    blocks = ctypes.c_int(0)
+    err = _lib().mega_edge_ttc_occupancy(n_opp, int(pool), int(rt_bf16),
+                                         int(noise_bf16), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"mega_edge_ttc occupancy query failed: CUDA error {err}")
+    return blocks.value
 
 
 def variant(opp, pool_off) -> str:

@@ -28,9 +28,11 @@ a few microseconds of work.  The eager chain it replaces issues one small
 kernel per tensor operation, well over a hundred per step, each a launch
 and a full pass over (E, A) tensors, so the kernel's gain is launches and
 host time, not device bandwidth.  Its design: one thread per row, with no
-fields-on-sublanes transpose (that layout exists for the TPU's lanes).  The vehicle and geometry scalars come
-from one small float32 device buffer (:func:`pack_params`) built once with
-the params, so no step waits on the host.  The source is compiled without
+fields-on-sublanes transpose (that layout exists for the TPU's lanes).  The
+vehicle and geometry scalars come from one small float32 device buffer
+(:func:`pack_params`) that ``env.sim_step`` builds from the params at every
+step, as the JAX package's ``pack_rows`` does, so replaced params take
+effect and no step waits on the host.  The source is compiled without
 FMA contraction, and every operation is written in the order and rounding
 of the PyTorch chain (IEEE division where PyTorch divides tensor by tensor,
 ``x * x`` for ``** 2``, round-half-even cells), so the kernel and its plain
@@ -99,9 +101,10 @@ def supported(cfg: SimConfig, params) -> bool:
 def pack_params(vehicle: VehicleParams, tmap, rtex):
     """The kernel's (32,) float32 scalar buffer (pallas_state.pack_rows):
     the 18 vehicle fields in VehicleParams order, then orig_x, orig_y,
-    orig_c, orig_s, cell, hc, wc.  None when a vehicle field is not a
-    scalar (the kernel's scope).  Build it again after replacing the
-    vehicle, map or texture of the params."""
+    orig_c, orig_s, cell, hc, wc, zeros.  None when a vehicle field is not
+    a scalar (the kernel's scope).  Reads the tensors as they are now, on
+    the device: a few small device ops and no host wait, so the step builds
+    it anew every time."""
     if rtex is None or any(getattr(vehicle, f).dim() != 0
                            for f in VehicleParams._fields):
         return None
@@ -109,14 +112,13 @@ def pack_params(vehicle: VehicleParams, tmap, rtex):
             + [getattr(tmap, f) for f in _GEO_FIELDS]
             + [rtex.cell, rtex.hc, rtex.wc])
     vals = [v.to(torch.float32) for v in vals]
-    pack = torch.zeros((PACK_LEN,), dtype=torch.float32, device=rtex.rt.device)
-    pack[:len(vals)] = torch.stack(vals)
-    return pack
+    zero = vals[0].new_zeros(())
+    return torch.stack(vals + [zero] * (PACK_LEN - len(vals)))
 
 
 def prestep_reference(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions):
-    """Plain PyTorch version of the state kernel (same signature as
-    :func:`prestep`): the eager chain of ``env.sim_step``.
+    """Plain PyTorch version of the state kernel (the arguments of
+    :func:`prestep` but the pack): the eager chain of ``env.sim_step``.
     -> (x' (..., 7), steer_buf' (..., 2), steer_cnt' (...) int32,
     rows (...) int32, scal (..., 8))."""
     x, steer_buf, steer_cnt = dynamics_chain(cfg, params.vehicle, x, steer_buf,
@@ -136,14 +138,16 @@ def _lib():
     return lib
 
 
-def prestep(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions):
+def prestep(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions, pack):
     """The state kernel on a CUDA device, its plain twin on the CPU.
 
     x (..., 7), steer_buf (..., 2), steer_cnt (...) int32, actions (..., 2);
-    ``params`` is an ``env.EnvParams`` with ``state_pack`` (pack_params).
-    On CUDA tensors it launches the kernel or raises, never a fallback;
-    callers check :func:`supported` first.  ``prestep.launches`` counts
-    kernel launches."""
+    ``params`` is an ``env.EnvParams`` and ``pack`` its
+    ``pack_params(params.vehicle, params.tmap, params.rtex)``, built from
+    the params of this call: the kernel reads its scalars from the pack,
+    the twin from the params.  On CUDA tensors it launches the kernel or
+    raises, never a fallback; callers check :func:`supported` first.
+    ``prestep.launches`` counts kernel launches."""
     lead = tuple(x.shape[:-1])
     if (x.shape[-1] != 7 or steer_buf.shape != lead + (2,)
             or steer_cnt.shape != lead or actions.shape != lead + (2,)):
@@ -166,10 +170,9 @@ def prestep(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions):
             raise ValueError(f"{name} must be float32 on CUDA, got {v.dtype}")
     if steer_cnt.dtype != torch.int32:
         raise ValueError(f"steer_cnt must be int32, got {steer_cnt.dtype}")
-    pack = params.state_pack
     if pack is None or pack.shape != (PACK_LEN,) or pack.device != device:
-        raise ValueError("params.state_pack must be state_kernels.pack_params "
-                         "of these params, on the same device")
+        raise ValueError("pack must be state_kernels.pack_params of these "
+                         "params, on the same device")
     if cfg.integrator not in (Integrator.RK4, Integrator.EULER):
         raise ValueError(f"unknown integrator {cfg.integrator}")
 

@@ -7,7 +7,8 @@ This file imports no JAX, so it also runs on a GPU machine without JAX:
 It covers what chip_smoke.py does not: every storage variant of the scan
 megakernel (bfloat16 / float32 texture, bfloat16 pool / float32 fresh
 noise, bfloat16 / float32 e/w taps), its opponent and pool_rot variants for
-2 and 4 agents, row counts that leave a partial block, the state kernel,
+2 and 4 agents, row and beam counts around its blocks and the blocks a SM
+each instance holds, the state kernel (also with a replaced vehicle),
 the epilogue kernels and the spectral render kernel against their twins,
 kernels 5 and 7 at row and beam counts around the tiles of
 csrc/rowtile_gemm.cuh (and at B = 1081, their 4-byte-copy instance),
@@ -122,8 +123,9 @@ def test_prestep_matches_plain_twin(gpu_params, integrator):
     cfg = dataclasses.replace(cfg, integrator=integrator)
     gen = torch.Generator(device=params.rtex.rt.device).manual_seed(4)
     args = random_states(params, (1001, 2), gen)
+    pack = state_kernels.pack_params(params.vehicle, params.tmap, params.rtex)
     before = state_kernels.prestep.launches
-    got = state_kernels.prestep(cfg, params, *args)
+    got = state_kernels.prestep(cfg, params, *args, pack)
     assert state_kernels.prestep.launches == before + 1
     want = state_kernels.prestep_reference(cfg, params, *args)
     torch.cuda.synchronize()
@@ -134,6 +136,27 @@ def test_prestep_matches_plain_twin(gpu_params, integrator):
         assert torch.equal(g, w)
     for g, w in zip(got, want):
         assert float((g.float() - w.float()).abs().max()) <= 1e-6
+
+
+def test_prestep_reads_replaced_params(gpu_params):
+    """Fault C1 on the card: after vehicle.replace(mu=1.1) the kernel, fed
+    the pack of the replaced params, meets the twin's bar on those params
+    (integers exact, floats within 1e-6), and mu moves the result."""
+    cfg, params = gpu_params
+    new = params._replace(vehicle=params.vehicle.replace(mu=1.1))
+    gen = torch.Generator(device=params.rtex.rt.device).manual_seed(12)
+    args = random_states(params, (1001, 2), gen)
+    got = state_kernels.prestep(cfg, new, *args,
+                                state_kernels.pack_params(new.vehicle, new.tmap, new.rtex))
+    want = state_kernels.prestep_reference(cfg, new, *args)
+    old = state_kernels.prestep_reference(cfg, params, *args)
+    torch.cuda.synchronize()
+    for g, w in ((got[2], want[2]), (got[3], want[3]),
+                 (got[4][..., 3:5], want[4][..., 3:5])):
+        assert torch.equal(g, w)
+    for g, w in zip(got, want):
+        assert float((g.float() - w.float()).abs().max()) <= 1e-6
+    assert float((want[0] - old[0]).abs().max()) > 1e-4, "fixture guard: mu moved nothing"
 
 
 def test_kernel_rejects_what_it_cannot_take(gpu_params):
@@ -159,10 +182,110 @@ def test_kernel_rejects_what_it_cannot_take(gpu_params):
         scan_kernels.mega_edge_ttc(**{**ops, "sines": params.tables.beam_sines,
                                       "opp": torch.zeros((k_n, 10_000), device=dev)})
     args = random_states(params, (4, 2), torch.Generator(device=dev))
+    pack = state_kernels.pack_params(params.vehicle, params.tmap, params.rtex)
     with pytest.raises(ValueError, match="steer_cnt must be int32"):
-        state_kernels.prestep(cfg, params, *args[:2], args[2].long(), args[3])
-    with pytest.raises(ValueError, match="state_pack"):
-        state_kernels.prestep(cfg, params._replace(state_pack=None), *args)
+        state_kernels.prestep(cfg, params, *args[:2], args[2].long(), args[3], pack)
+    with pytest.raises(ValueError, match="pack_params"):
+        state_kernels.prestep(cfg, params, *args, None)
+
+
+# The megakernel's blocks (csrc/mega_edge_ttc.cu): 8 rows a block, whose
+# 256 threads stride over the beams.  Row counts near the block's edges for
+# 1 to 4 agents, beam counts on both sides of the stride and 1081, every
+# variant, bf16 and float32 storage (texture, noise and e/w taps), and the
+# pool offset at 0 and at rows - 37.
+MEGA_BM, MEGA_BN = 8, 256
+MEGA_ROWS = [(-(-k // a) * a, a) for k in (2, MEGA_BM - 2, MEGA_BM + 2, 3 * MEGA_BM + 4)
+             for a in (1, 2, 3, 4)]
+MEGA_ALL = ("plain", "opp", "pool_rot", "opp+pool_rot")
+MEGA_EDGES = (
+    [(k, a, 1080, v, "bfloat16", 37) for k, a in MEGA_ROWS
+     for v in (("plain", "pool_rot") if a == 1 else ("opp", "opp+pool_rot"))]
+    + [(3 * MEGA_BM + 4, 2, b, v, "bfloat16", 37)
+       for b in (MEGA_BN - 4, MEGA_BN + 4, 1081) for v in MEGA_ALL]
+    + [(MEGA_BM + 2, 2, b, v, "float32", 37) for b in (1080, 1081) for v in MEGA_ALL]
+    + [(3 * MEGA_BM + 4, 2, b, v, "bfloat16", None) for b in (1080, 1081)
+       for v in ("pool_rot", "opp+pool_rot")])
+
+
+@pytest.fixture(scope="module")
+def params_by_beams(gpu_params):
+    """{B: (cfg, params)} on demand: the gpu_params config at B beams."""
+    cache = {gpu_params[0].num_beams: gpu_params}
+
+    def get(b_n):
+        if b_n not in cache:
+            cfg = dataclasses.replace(gpu_params[0], num_beams=b_n)
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
+                cache[b_n] = cfg, env.make_params(cfg, assets.named_map_yaml(TRACK),
+                                                  device=torch.device("cuda"))
+        return cache[b_n]
+    return get
+
+
+@pytest.mark.parametrize("k_n, agents, b_n, variant, dtype, back", MEGA_EDGES,
+                         ids=lambda v: str(v))
+def test_mega_tile_edges_match_plain_twin(params_by_beams, k_n, agents, b_n, variant,
+                                          dtype, back):
+    """Each megakernel variant at row and beam counts around its blocks:
+    the scan bar of _check_against_twin and equal hits; the pool offset is
+    rows - back (0 when back is None).  The guards (some hits, some beams
+    shortened by an opponent) hold from 3 BM rows on."""
+    cfg, params = params_by_beams(b_n)
+    dev = params.rtex.rt.device
+    gen = torch.Generator(device=dev).manual_seed(k_n * 7 + b_n + agents)
+    e_n = k_n // agents
+    poses = (close_poses(params, e_n, agents, gen) if agents > 1
+             else random_free_poses(params, e_n, gen)[:, None])
+    vel = -2.0 + 10.0 * torch.rand((e_n, agents), generator=gen, device=dev)
+    opp = pool_off = None
+    if "pool_rot" in variant:
+        noise = params.noise_pool
+        off = 0 if back is None else cfg.noise_pool_rows - back
+        pool_off = torch.tensor([off], dtype=torch.int32, device=dev)
+    else:
+        noise = params.noise_pool[torch.randint(0, cfg.noise_pool_rows, (e_n,),
+                                                generator=gen, device=dev)]
+    if "opp" in variant:
+        verts = collision.get_vertices(poses, params.vehicle.length, params.vehicle.width)
+        opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
+    f32 = dtype == "float32"
+    ops = scan_fast.mega_operands(poses, params.tables, params.tmap, params.rtex, cfg,
+                                  noise.float() if f32 else noise, vel, opp=opp,
+                                  pool_off=pool_off)
+    if f32:
+        ops.update(rt=ops["rt"].float(), ew_dtype=torch.float32)
+    before = scan_kernels.mega_edge_ttc.launches[variant]
+    out, hit = scan_kernels.mega_edge_ttc(**ops)
+    assert scan_kernels.mega_edge_ttc.launches[variant] == before + 1
+    ref, ref_hit = scan_kernels.mega_edge_ttc_reference(**ops)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    assert out.shape == (k_n, b_n) and torch.isfinite(out).all()
+    assert float(torch.quantile(err.flatten(), 0.99)) < 1e-3
+    assert float((err > 4 * float(params.rtex.cell)).float().mean()) < 2e-3
+    assert torch.equal(hit, ref_hit)
+    if k_n >= 3 * MEGA_BM:
+        assert hit.sum() > 0, "fixture guard: no iTTC hits"
+        if opp is not None:
+            base, _ = scan_kernels.mega_edge_ttc_reference(
+                **{**ops, "opp": None, "sines": None})
+            assert (out < base - 1e-6).any(), "fixture guard: no beam shortened"
+
+
+def test_mega_variants_hold_their_blocks(gpu_params):
+    """Every megakernel instance fits the blocks a SM its __launch_bounds__
+    pins (csrc/mega_edge_ttc.cu MIN_BLOCKS)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(scan_kernels.__file__).parents[1] / "csrc" / "mega_edge_ttc.cu").read_text()
+    pinned = int(re.search(r"constexpr int MIN_BLOCKS = (\d+);", src).group(1))
+    for n_opp, pool in ((0, False), (0, True), (1, False), (1, True), (3, True)):
+        for rt_bf16 in (True, False):
+            for noise_bf16 in (True, False):
+                assert scan_kernels.resident_blocks(n_opp, pool, rt_bf16, noise_bf16) >= pinned
 
 
 BLEND_CASES = (

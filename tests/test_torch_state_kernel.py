@@ -88,7 +88,8 @@ def test_reference_matches_jax_kernel(jax_params, integrator):
     tp = interop.params_from_numpy(cfg_t, _leaves(jp.vehicle), _leaves(jp.tables),
                                    _leaves(jp.tmap), _leaves(jp.rtex), device="cpu")
     # interop keeps the JAX package's 0-d vehicle scalars 0-d: in scope
-    assert state_kernels.supported(cfg_t, tp) and tp.state_pack is not None
+    assert state_kernels.supported(cfg_t, tp)
+    assert state_kernels.pack_params(tp.vehicle, tp.tmap, tp.rtex) is not None
     t_x, t_buf, t_cnt, t_rows, t_scal = state_kernels.prestep_reference(
         cfg_t, tp, torch.from_numpy(x), torch.from_numpy(buf),
         torch.from_numpy(cnt), torch.from_numpy(act))
@@ -160,11 +161,12 @@ def test_state_kernel_scope(port_params):
     tenv.reset(dataclasses.replace(cfg, steer_delay=3), params, poses, gen)
 
     x, buf, cnt, act = (torch.from_numpy(v)[:4] for v in _inputs(params))
-    out = state_kernels.prestep(cfg, params, x, buf, cnt, act)
+    pack = state_kernels.pack_params(params.vehicle, params.tmap, params.rtex)
+    out = state_kernels.prestep(cfg, params, x, buf, cnt, act, pack)
     ref = state_kernels.prestep_reference(cfg, params, x, buf, cnt, act)
     assert all(torch.equal(u, v) for u, v in zip(out, ref))
     with pytest.raises(ValueError, match="steer_buf"):
-        state_kernels.prestep(cfg, params, x, buf[..., :1], cnt, act)
+        state_kernels.prestep(cfg, params, x, buf[..., :1], cnt, act, pack)
 
 
 @pytest.mark.parametrize("kw", [dict(scan_megakernel="off"),
@@ -186,9 +188,40 @@ def test_state_kernel_needs_the_megakernel(port_params, kw):
 
 def test_pack_params_layout(port_params):
     cfg, params = port_params
-    pk = params.state_pack
+    pk = state_kernels.pack_params(params.vehicle, params.tmap, params.rtex)
     assert pk.shape == (state_kernels.PACK_LEN,) and pk.dtype == torch.float32
     assert float(pk[0]) == float(params.vehicle.mu)
     assert float(pk[22]) == float(params.rtex.cell)
     assert (int(pk[23]), int(pk[24])) == (int(params.rtex.hc), int(params.rtex.wc))
+    assert not pk[25:].any()
+
+
+def test_step_packs_the_params_it_is_given(port_params, monkeypatch):
+    """Fault C1: the pack that env.step hands to prestep is built from the
+    params of that step, so a replaced scalar vehicle field (mu) and a
+    replaced map scalar (orig_x) reach the kernel, as JAX's pack_rows
+    reads them at every step (red_gym_tpu/env.py:282)."""
+    cfg, params = port_params
+    new = params._replace(vehicle=params.vehicle.replace(mu=1.1),
+                          tmap=params.tmap._replace(orig_x=params.tmap.orig_x + 0.25))
+    assert state_kernels.supported(cfg, new)
+    handed = []
+    prestep = state_kernels.prestep
+
+    def spy(*args):
+        handed.append(args[-1])
+        return prestep(*args)
+
+    monkeypatch.setattr(state_kernels, "prestep", spy)
+    poses = torch.as_tensor(assets.waypoint_start_poses(TRACK, A)[None],
+                            dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    state, *_ = tenv.reset(cfg, params, poses, gen)
+    tenv.step(cfg, new, state, torch.zeros((1, A, 2)), gen)
+    old_pk = state_kernels.pack_params(params.vehicle, params.tmap, params.rtex)
+    new_pk = state_kernels.pack_params(new.vehicle, new.tmap, new.rtex)
+    assert len(handed) == 2
+    assert torch.equal(handed[0], old_pk) and torch.equal(handed[1], new_pk)
+    assert float(handed[1][0]) == float(torch.tensor(1.1))
+    assert float(handed[1][18]) == float(new.tmap.orig_x) != float(old_pk[18])
 
