@@ -22,7 +22,10 @@ line:
    card's work as it does on a path; the same for kernel, twin and library
    call) and the kernel's registers and spill bytes from its ptxas report:
    - mega_edge_ttc, plain, on operands made by the main path's own prep
-     from random free poses;
+     from random free poses; the call launches the spectra kernel and the
+     render kernel, and each is also timed alone (``spectra_ms``,
+     ``render_ms``), with the spectra kernel's own bound (float64
+     operations over the card's float64 rate, or bytes);
    - mega_edge_ttc with opponents (slab noise), and with opponents and the
      pool_rot resident pool (offset rows - 37), the second car of each env
      placed within 2.5 m of the first; some beams must be shortened;
@@ -93,8 +96,11 @@ TIMING_REPS = 20
 P99_TOL, FAR_FRAC_TOL = 1e-3, 2e-3   # the f32 bar of tests/test_scan_fast.py
 PRESTEP_TOL = 1e-6                   # prestep float outputs, kernel vs twin
 NOISE_MARGIN = 0.1                   # 10 sigma of the 1 cm scan noise
-# published H100 SXM peaks: float32 outside the tensor cores, HBM3 rate
-F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# published H100 SXM peaks, the card's fastest rate for each type: float32
+# FMAs outside the tensor cores (TF32 is another type), bf16 and float64 on
+# the tensor cores (float64 MMA rounds each product and sum as IEEE float64
+# does), and the HBM3 rate
+F32_FLOPS, BF16_FLOPS, F64_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 67e12, 3.35e12
 # prestep's operations a row, counted high (steer delay, PID, four
 # single-track evaluations of RK4, cell lookup): even so they take less
 # time than its bytes, so bytes bound it
@@ -283,11 +289,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(flops: float, moved: int) -> dict:
+def bound(moved: int, f32: float = 0.0, bf16: float = 0.0, f64: float = 0.0) -> dict:
     """The least time the card could take: the larger of the operations
-    over the float32 peak and the bytes (each input read once, each output
+    (float32, bf16-input and float64 ones, each type over the card's peak
+    rate for it, summed) and the bytes (each input read once, each output
     written once) over the memory rate."""
-    ops_ms = 1e3 * flops / F32_FLOPS
+    ops_ms = 1e3 * (f32 / F32_FLOPS + bf16 / BF16_FLOPS + f64 / F64_FLOPS)
     bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -295,15 +302,15 @@ def bound(flops: float, moved: int) -> dict:
 
 # the kernel function (in ptxas's report of its library) of each kernel
 # record, in the instance its path launches: bf16 texture and noise, 16-byte
-# copies at B = 1080; each megakernel variant is an instance of its own
-# (<opponents, pool_rot, texture type, noise type>)
+# copies at B = 1080; the megakernel is a spectra kernel (<texture type>)
+# and a render kernel whose variants are instances of their own
+# (<opponents, pool_rot, noise type>)
+MEGA_SPECTRA = "mega_spectra_kernel<__nv_bfloat16>"
 KERNEL_FUNCTIONS = {
-    "mega_edge_ttc": ("mega_edge_ttc",
-                      "mega_edge_ttc_kernel<false, false, __nv_bfloat16, __nv_bfloat16>"),
-    "mega_edge_ttc+opp": ("mega_edge_ttc",
-                          "mega_edge_ttc_kernel<true, false, __nv_bfloat16, __nv_bfloat16>"),
+    "mega_edge_ttc": ("mega_edge_ttc", "mega_render_kernel<false, false, __nv_bfloat16>"),
+    "mega_edge_ttc+opp": ("mega_edge_ttc", "mega_render_kernel<true, false, __nv_bfloat16>"),
     "mega_edge_ttc+opp+pool_rot": ("mega_edge_ttc",
-                                   "mega_edge_ttc_kernel<true, true, __nv_bfloat16, __nv_bfloat16>"),
+                                   "mega_render_kernel<true, true, __nv_bfloat16>"),
     "prestep": ("prestep", "prestep_kernel"),
     "theta_shuffle_blend_edge_ttc": ("theta_blend", "theta_blend_kernel<1, __nv_bfloat16>"),
     "theta_shuffle_blend_edge_ttc_opp": ("theta_blend",
@@ -314,10 +321,11 @@ KERNEL_FUNCTIONS = {
 }
 
 
-def resources(reports: dict, name: str) -> dict:
-    """{"regs", "spill_bytes"} of kernel record ``name`` from the ptxas
-    reports {library: report}."""
-    lib, fn = KERNEL_FUNCTIONS[name]
+def resources(reports: dict, name: str, fn: str | None = None) -> dict:
+    """{"regs", "spill_bytes"} of kernel record ``name`` (or of function
+    ``fn`` of its library) from the ptxas reports {library: report}."""
+    lib, record_fn = KERNEL_FUNCTIONS[name]
+    fn = fn or record_fn
     if fn not in reports[lib]:
         fail(f"{name}: no {fn} in the ptxas report of {lib}: {sorted(reports[lib])}")
     return reports[lib][fn]
@@ -331,31 +339,88 @@ def timed(label: str, kernel, plain, lims: dict, res: dict, library=None) -> dic
     plain_ms = median_ms(plain, TIMING_REPS)
     library_ms = None if library is None else median_ms(library, TIMING_REPS)
     lib = "" if library is None else f", library call {library_ms:.3f} ms"
+    regs = (f"; {res['regs']} registers, {res['spill_bytes']} spill bytes" if res
+            else "")
     say("kernel", f"{label}: median of {TIMING_REPS}: CUDA kernel {ms:.3f} ms, "
         f"plain PyTorch twin {plain_ms:.3f} ms{lib}; bound {lims['bound_ms']:.4f} ms "
-        f"by {lims['bound_by']}; {res['regs']} registers, {res['spill_bytes']} spill bytes")
+        f"by {lims['bound_by']}{regs}")
     return {"ms": ms, "plain_ms": plain_ms, **lims, "library_ms": library_ms, **res}
 
 
+def tap_work(k_n: int, t_bins: int, b_n: int, ew_dtype) -> dict:
+    """Operations of the seven (T x B) tap products of K rows, by type: the
+    three range taps in float32, the four e/w taps bf16 x bf16 -> float32
+    under a bf16 ew_dtype."""
+    import torch
+
+    tap = 2.0 * k_n * t_bins * b_n
+    if ew_dtype == torch.bfloat16:
+        return {"f32": 3 * tap, "bf16": 4 * tap}
+    return {"f32": 7 * tap}
+
+
 def mega_bound(ops, out, hit) -> dict:
-    """The megakernel's bound: per row seven (T x B) tap products and the
-    packed rfft of three rows (T x T each; float64 in the kernel, counted
-    at the float32 rate so that the bound stays a least time); its bytes
-    are the K gathered texture rows, the per-row and constant operands,
-    the noise slab or pool, and the scan and hits written once."""
+    """The megakernel's bound: per row seven (T x B) tap products
+    (tap_work) and the packed rfft of three rows (T x T each, float64);
+    its bytes are the K gathered texture rows, the per-row and constant
+    operands, the noise slab or pool, and the scan and hits written
+    once."""
     k_n, t_bins, b_n = ops["rows"].shape[0], ops["t_bins"], ops["c_frac"].shape[0]
     rt = ops["rt"]
-    flops = 2.0 * k_n * (7 * t_bins * b_n + 3 * t_bins * t_bins)
     moved = k_n * rt.shape[1] * rt.element_size() + nbytes(
         ops["rows"], ops["scal"], ops["noise"], ops["fmat"], ops["gmat"], ops["c_frac"],
         ops["cosines"], ops["side_dist"], ops.get("sines"), ops.get("opp"),
         ops.get("pool_off"), out, hit)
-    return bound(flops, moved)
+    return bound(moved, f64=2.0 * k_n * 3 * t_bins * t_bins,
+                 **tap_work(k_n, t_bins, b_n, ops["ew_dtype"]))
+
+
+def spectra_bound(ops) -> dict:
+    """The spectra kernel's own bound: the packed rfft of three rows per
+    row (T x T each) in float64 over the card's float64 rate; its bytes are
+    the K gathered texture rows, the per-row and constant operands, and the
+    rolled spectra and per-row f_s, wsum and vel it writes."""
+    k_n, t_bins = ops["rows"].shape[0], ops["t_bins"]
+    rt = ops["rt"]
+    moved = k_n * rt.shape[1] * rt.element_size() + nbytes(
+        ops["rows"], ops["scal"], ops["fmat"]) + 4 * k_n * (3 * t_bins + 3)
+    return bound(moved, f64=2.0 * k_n * 3 * t_bins * t_bins)
+
+
+def mega_stage_times(label: str, ops, reports, n_opp: int) -> dict:
+    """The spectra kernel and the render kernel of one call, each timed
+    alone (the render on the spectra that a spectra launch left in the
+    workspace), the spectra kernel's bound, and each kernel's registers,
+    spills and resident blocks a SM."""
+    import torch
+
+    from red_gym_tpu_torch.ops import scan_kernels
+
+    ws = scan_kernels.mega_workspace(ops["rows"].shape[0], ops["t_bins"],
+                                     ops["rt"].device)
+    spectra_ms = median_ms(lambda: scan_kernels.mega_stages(1, ws, **ops), TIMING_REPS)
+    render_ms = median_ms(lambda: scan_kernels.mega_stages(2, ws, **ops), TIMING_REPS)
+    torch.cuda.synchronize()
+    lims = spectra_bound(ops)
+    name = "mega_edge_ttc" if label == "plain" else f"mega_edge_ttc+{label}"
+    blocks = scan_kernels.resident_blocks(n_opp, "pool_rot" in label)
+    kernels = {"spectra": {"function": MEGA_SPECTRA, **resources(reports, name, MEGA_SPECTRA),
+                           "blocks_per_sm": blocks["spectra"], "ms": spectra_ms, **lims},
+               "render": {"function": KERNEL_FUNCTIONS[name][1], **resources(reports, name),
+                          "blocks_per_sm": blocks["render"], "ms": render_ms}}
+    say("kernel", f"{label}: spectra kernel bound {lims['bound_ms']:.4f} ms by "
+        f"{lims['bound_by']} (float64 at {F64_FLOPS / 1e12:.1f} TFLOP/s on the tensor cores)")
+    for role, k in kernels.items():
+        say("kernel", f"{label}: {role} kernel alone {k['ms']:.3f} ms; {k['function']}: "
+            f"{k['regs']} registers, {k['spill_bytes']} spill bytes, "
+            f"{k['blocks_per_sm']} resident block(s) a SM")
+    return {"spectra_ms": spectra_ms, "render_ms": render_ms, "kernels": kernels}
 
 
 def mega_phase(cfg, params, dev, reports) -> dict:
     """The megakernel's plain, opp and opp+pool_rot variants against the
-    twin; {variant: record fields}."""
+    twin, the pair and each of its kernels timed; {variant: record
+    fields}."""
     import torch
 
     from red_gym_tpu_torch.ops import agent_scan, collision, scan_fast, scan_kernels
@@ -375,8 +440,8 @@ def mega_phase(cfg, params, dev, reports) -> dict:
     torch.cuda.synchronize()
     rec = {"plain": {"max_abs_err": scan_bar("plain", out_k, hit_k, out_r, hit_r, cell),
                      **timed("plain", lambda: mega(**ops), lambda: ref(**ops),
-                             mega_bound(ops, out_k, hit_k),
-                             mega_resources(reports, "plain", 0))}}
+                             mega_bound(ops, out_k, hit_k), {}),
+                     **mega_stage_times("plain", ops, reports, 0)}}
 
     poses = close_poses(params, ENVS, AGENTS, gen)
     verts = collision.get_vertices(poses, params.vehicle.length, params.vehicle.width)
@@ -397,20 +462,9 @@ def mega_phase(cfg, params, dev, reports) -> dict:
             fail(f"{name}: no beam shortened by an opponent")
         rec[name] = {"max_abs_err": err,
                      **timed(name, lambda: mega(**ops), lambda: ref(**ops),
-                             mega_bound(ops, out_k, hit_k),
-                             mega_resources(reports, name, opp.shape[-1] // 10))}
+                             mega_bound(ops, out_k, hit_k), {}),
+                     **mega_stage_times(name, ops, reports, opp.shape[-1] // 10)}
     return rec
-
-
-def mega_resources(reports, variant: str, n_opp: int) -> dict:
-    """The registers and spills of a megakernel variant's own instance, and
-    the blocks of it that one SM holds at once."""
-    from red_gym_tpu_torch.ops import scan_kernels
-
-    name = "mega_edge_ttc" if variant == "plain" else f"mega_edge_ttc+{variant}"
-    blocks = scan_kernels.resident_blocks(n_opp, "pool_rot" in variant)
-    say("kernel", f"{variant}: {KERNEL_FUNCTIONS[name][1]}: {blocks} resident block(s) a SM")
-    return {**resources(reports, name), "blocks_per_sm": blocks}
 
 
 def blend_phase(cfg, params, dev, reports) -> dict:
@@ -464,11 +518,12 @@ def blend_bound(kw, out, hit) -> dict:
     k_n, t_bins = kw["spec_r"].shape
     b_n = kw["c_frac"].shape[0]
     specs = [kw[s] for s in ("spec_r", "spec_e", "spec_w") if s in kw]
-    taps = 7 if len(specs) == 3 else 3
     moved = nbytes(*specs, *(kw.get(n) for n in (
         "f_s", "wsum", "vel", "gmat", "c_frac", "noise", "cosines", "sines",
         "side_dist", "opp")), out, hit)
-    return bound(2.0 * k_n * taps * t_bins * b_n, moved)
+    if len(specs) == 3:
+        return bound(moved, **tap_work(k_n, t_bins, b_n, kw["ew_dtype"]))
+    return bound(moved, f32=2.0 * k_n * 3 * t_bins * b_n)
 
 
 def spectral_operands(cfg, params, poses, gen) -> dict:
@@ -509,9 +564,9 @@ def spectral_phase(cfg, params, dev, reports) -> dict:
     err = scan_bar("theta_spectral_ttc", out_k, hit_k, out_r, hit_r, float(params.rtex.cell))
     k_n, t_bins = kw["spec_r"].shape
     b_n = kw["smat"].shape[1]
-    lims = bound(2.0 * k_n * t_bins * b_n,
-                 nbytes(*(kw[n] for n in ("spec_r", "wsum", "vel", "smat", "noise",
-                                          "cosines", "side_dist")), out_k, hit_k))
+    lims = bound(nbytes(*(kw[n] for n in ("spec_r", "wsum", "vel", "smat", "noise",
+                                          "cosines", "side_dist")), out_k, hit_k),
+                 f32=2.0 * k_n * t_bins * b_n)
     def library():
         return torch.matmul(kw["spec_r"], kw["smat"])
 
@@ -557,8 +612,7 @@ def prestep_phase(cfg, params, dev, reports) -> dict:
     if not max_err <= PRESTEP_TOL:
         fail(f"prestep: float outputs differ from the twin by {max_err}")
     k_n = ENVS * AGENTS
-    lims = bound(float(PRESTEP_OPS_PER_ROW * k_n),
-                 nbytes(*args, pack, *got))
+    lims = bound(nbytes(*args, pack, *got), f32=float(PRESTEP_OPS_PER_ROW * k_n))
     return {"max_abs_err": max_err,
             **timed("prestep", lambda: state_kernels.prestep(cfg, params, *args, pack),
                     lambda: state_kernels.prestep_reference(cfg, params, *args), lims,

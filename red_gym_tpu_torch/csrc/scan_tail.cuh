@@ -4,7 +4,8 @@
 // The counterparts of the TPU kernels' _noise_ttc_tile and _opp_raycast_tile
 // (red_gym_tpu/ops/pallas_scan.py); their plain PyTorch versions are
 // scan_kernels.noise_ttc_reference and scan_kernels.opp_cast_reference.
-// (csrc/mega_edge_ttc.cu keeps its own copy of these functions.)
+// csrc/edge_render.cuh (the edge epilogues and the megakernel's render) and
+// csrc/theta_spectral.cu use them.
 
 #pragma once
 
@@ -79,18 +80,6 @@ __device__ __forceinline__ float opp_hit(const float* p, float cb, float sb) {
   const bool hit = tmax >= tmin && tmax >= 0.f;
   const float t = tmin >= 0.f ? tmin : tmax;  // from inside: exit distance
   return hit ? t : CUDART_INF_F;
-}
-
-// Beam b (absolute index) of a row's noisy scan o, shortened by every
-// opponent of the row's packs whose blocked window [lo, hi] holds b.
-__device__ __forceinline__ float opp_cast(float o, const float* packs, int n_opp, int b,
-                                          float cb, float sb) {
-  const float bpos = (float)b;
-  for (int q = 0; q < n_opp; ++q) {
-    const float* p = packs + q * OPP_PACK;
-    if (bpos >= p[0] && bpos <= p[1]) o = nan_min(o, opp_hit(p, cb, sb));
-  }
-  return o;
 }
 
 }  // namespace scan_tail

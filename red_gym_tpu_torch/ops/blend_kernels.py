@@ -14,9 +14,9 @@ epilogues of the linear-theta scan without the megakernel
   kernel 3, then the opponent slab ray cast inside each blocked window.
 
 The CUDA C++ source is ``red_gym_tpu_torch/csrc/theta_blend.cu`` (kernel
-7's own kernel on the mainloop of ``csrc/rowtile_gemm.cuh``, one template
-for the edge forms, one C entry point; the noise + iTTC tail and the
-opponent cast are in ``csrc/scan_tail.cuh``).  Each function here has the JAX
+7's own kernel on the mainloop of ``csrc/rowtile_gemm.cuh``, the edge
+forms on the render tile of ``csrc/edge_render.cuh``, one C entry point;
+the noise + iTTC tail and the opponent cast are in ``csrc/scan_tail.cuh``).  Each function here has the JAX
 signature, with the beam count taken from ``c_frac``: on CUDA tensors it
 launches the kernel or raises (a build, check or launch failure is an
 error, never a fallback), on CPU tensors it runs its plain twin
@@ -29,8 +29,10 @@ and sum in float32, and the tap outputs are not rounded.
 
 What bounds them on an H100: at K = 32768 rows and B = 1080 beams the edge
 kernels do seven (T x B) tap products per row, 63.4 GFLOP (7 x K x 128 x B
-x 2), about 0.95 ms at the published 67 TFLOP/s of float32 outside the
-tensor cores; kernel 7 does three, 27.2 GFLOP.  Their bytes are 50 MB of
+x 2): the three float32 range taps take about 0.41 ms at the published 67
+TFLOP/s of float32 outside the tensor cores, the four bf16-input e/w taps
+0.04 ms at the bf16 tensor-core rate; kernel 7 does three float32 taps,
+27.2 GFLOP.  Their bytes are 50 MB of
 spectra in, the 142 MB (K, B) scan out and, for 3 and 4, the 35 MB bf16
 (E, B) noise slab: about 70 us at 3.35 TB/s.  So they are bound by float32
 FMAs, and the taps must stay out of TF32.
@@ -45,14 +47,16 @@ summed in lane order, and blends them with each operation rounded as the
 twin rounds it.  One block a SM (167 registers a thread).  Its yardstick
 is ``spec_r @ gmat`` (cuBLAS).
 
-The edge forms (6, 3, 4): one block of 256 threads per 8 rows stages the
-rows' three spectra (e/w rounded to bf16 there when ``ew_dtype`` is
-bfloat16) in shared memory; each thread owns beams b, b + 256, ... and
-sweeps the 128 spectral lanes four at a time, so one float4 shared-memory
-broadcast feeds four FMAs and each gmat column read from L2 (1.66 MB,
-resident) serves 8 rows.  Two blocks per SM are pinned
-(``__launch_bounds__``, 128 registers a thread).  Their redesign is ROADMAP
-D's.
+The edge forms (6, 3, 4) are ``csrc/edge_render.cuh``'s register tile,
+the same kernel body as the megakernel's render: a block of 256 threads
+owns 64 rows with their three spectra resident in shared memory (e/w
+rounded to bf16 there when ``ew_dtype`` is bfloat16, read in place from
+the strided spec[:, c] views) and walks the 64-beam tiles, gmat streaming
+through a 3-stage cp.async ring whose g0/g1 chunks are rounded to bf16 once
+as they land; each thread keeps 4 rows x 4 beams, runs the four e/w taps
+to the ramp weight, then the three range taps, then the render and tail on
+those registers.  One block a SM; each form and noise type is a kernel
+instance of its own.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ Replaces the TPU kernel ``red_gym_tpu/ops/pallas_scan.py::mega_edge_ttc``
 (``_mega_kernel``) in all its variants: plain, with the in-kernel opponent
 ray cast (``opp``), with the resident noise pool of ``noise_mode="pool_rot"``
 (``pool_off``), and with both.  The CUDA C++ source is
-``red_gym_tpu_torch/csrc/mega_edge_ttc.cu``.
+``red_gym_tpu_torch/csrc/mega_edge_ttc.cu`` (its render kernel on
+``csrc/edge_render.cuh``).
 
 Per row k (one car), from its texture row [R | e | w | gx | gy] (T = 128 bins
 each) and its packed scalars ``scal[k] = [dx, dy, f_s, i_f, inb, vel, -, -]``:
@@ -28,28 +29,37 @@ each) and its packed scalars ``scal[k] = [dx, dy, f_s, i_f, inb, vel, -, -]``:
    the TPU kernel orders it).
 
 What bounds it on an H100: at K = 32768 rows and B = 1080 beams the seven
-tap products are 63.4 GFLOP per step (7 x K x 128 x B x 2), about 0.95 ms
-at the published 67 TFLOP/s of float32 outside the tensor cores, while the
-bytes (the K texture rows, 42 MB in bfloat16; the (E, B) noise, 35 MB; the
-(K, B) scan written once, 142 MB) take about 65 us at 3.35 TB/s.  So it is
-bound by float32 FMAs, and the range taps must stay out of TF32.  The design
-does about that: one block of 256 threads per 8 rows stages the rows'
-rolled spectra (3 x 128 floats each) in shared memory once, then each
-thread owns one beam and sweeps the 128 spectral lanes four at a time, so
-one float4 shared-memory broadcast feeds four FMAs and each gmat column
-read from L2 (1.66 MB, resident) serves 8 rows x 7 taps.  Two blocks share
-a SM (``__launch_bounds__(256, 2)``), so one block's float64 rfft runs
-while the other multiplies, and each variant is a kernel instance of its
-own.  The texture-row gather happens inside the kernel (the JAX package
-gathers in XLA because Mosaic cannot), atan2f replaces the TPU's
-polynomial, and the T/2 column rotation of ``fmat_sw`` and the one-lane
-shift of ``shift1`` are index arithmetic instead of matrix products.  The opponent cast adds two
-divisions and a few compares per opponent and beam, negligible next to the
-taps; the rows' packs sit in shared memory.  The resident pool replaces the
-35 MB (E, B) noise slab with reads from a 2.2 MB pool that stays in L2; its
-offset is a device tensor, so no step waits on the host.  Tensor cores
-(wgmma, with the taps split into bf16 pieces or TF32x3) and TMA are for
-later work.
+tap products are 63.4 GFLOP per step (7 x K x 128 x B x 2).  The three
+float32 range taps take about 0.41 ms at the published 67 TFLOP/s of float32
+outside the tensor cores, the four bf16-input e/w taps 0.04 ms at the bf16
+tensor-core rate, while the bytes (the K texture rows, 42 MB in bfloat16;
+the (E, B) noise, 35 MB; the (K, B) scan written once, 142 MB) take about
+65 us at 3.35 TB/s.  So it is bound by float32 FMAs, and the range taps must
+stay out of TF32.  Steps 1-4 add the packed rfft of three rows, 3.2 GFLOP in
+float64 (about 0.05 ms at the H100's 67 TFLOP/s float64 tensor-core rate,
+0.1 ms at its SIMT rate, which the kernel runs at).
+
+The design splits the work in two kernels, launched one after the other:
+the spectra kernel (steps 1-4; twin :func:`mega_spectra_reference`) at 16
+warps a SM, with fmat staged in float64 in shared memory once a block and
+the rows' channels staged in float64, writes the rolled spectra (K, 3T)
+and the per-row f_s, wsum and vel to a workspace; the render kernel (steps
+5-7; twins :func:`edge_render_reference`, :func:`noise_ttc_reference`,
+:func:`opp_cast_reference`) is ``csrc/edge_render.cuh``'s register tile,
+shared with the edge epilogues of ``blend_kernels``: 64 rows a block with
+their spectra resident in shared memory, gmat through a cp.async ring, the
+four e/w taps and then the three range taps on 4 rows x 4 beams a thread,
+and the render and tail on those registers.  Each variant is a render
+instance of its own.  The round trip of the spectra (50 MB written and read
+at K = 32768) costs about 0.03 ms.  The texture-row gather happens inside the
+spectra kernel (the JAX package gathers in XLA because Mosaic cannot),
+atan2f replaces the TPU's polynomial, and the T/2 column rotation of
+``fmat_sw`` and the one-lane shift of ``shift1`` are index arithmetic
+instead of matrix products.  The opponent cast adds two divisions and a
+few compares per opponent and beam; the rows' packs sit in shared memory.
+The resident pool replaces the 35 MB (E, B) noise slab with reads from a
+2.2 MB pool that stays in L2; its offset is a device tensor, so no step
+waits on the host.  Tensor cores are for later work.
 """
 
 from __future__ import annotations
@@ -94,26 +104,20 @@ def opp_cast_reference(out, opp, cosines, sines):
     return out
 
 
-def mega_edge_ttc_reference(rt, rows, scal, fmat, fmat_sw, shift1, gmat,
-                            c_frac, noise, cosines, side_dist,
-                            max_range: float, ttc_thresh: float,
-                            agents_per_env: int, t_bins: int,
-                            ew_dtype=torch.bfloat16, sines=None, opp=None,
-                            pool_off=None):
-    """Plain PyTorch version of the megakernel (same signature).
+def mega_spectra_reference(rt, rows, scal, fmat, fmat_sw, shift1,
+                           max_range: float, t_bins: int,
+                           ew_dtype=torch.bfloat16):
+    """Plain PyTorch version of the megakernel's spectra kernel: per row,
+    the gradient fold, the corner-bearing parallax, the packed rfft
+    summed in float64 and rounded once, and the integer roll.
 
     rt (N, 5T) texture, rows (K,) texture-row index, scal (K, 8) per-row
-    [dx, dy, f_s, i_f, inb, vel, -, -], fmat/fmat_sw/shift1 (T, T), gmat
-    (T, 3B), c_frac/cosines/side_dist (B,), and noise (E, B) with K = E *
-    agents_per_env, or with ``pool_off`` (1,) int32 the (rows, B) pool of
-    ``noise_mode="pool_rot"`` (see :func:`pool_rot_rows`).  ``opp``
-    (K, 10 * n_opp) with ``sines`` (B,) adds the opponent ray cast.  Returns
-    (scan (K, B), hit (K,) float 0/1); the hits come from the scan before
-    the opponent cast.  Computes in fmat's dtype; matrix products are
-    torch.matmul, so on a CUDA device TF32 must be off for float32."""
+    [dx, dy, f_s, i_f, inb, vel, -, -], fmat/fmat_sw/shift1 (T, T).
+    Returns what the kernel writes: the rolled spectra (K, 3T) [range | e |
+    w] with e and w rounded to ``ew_dtype``, and f_s, wsum and vel (K,).
+    Computes in fmat's dtype; the rfft is a float64 torch.matmul."""
     T = t_bins
     cd = fmat.dtype
-    k_n = rows.shape[0]
     raw = rt[rows.long()]
     R, e, w, gx, gy = (raw[:, i * T:(i + 1) * T].to(cd) for i in range(5))
     dxc, dyc, fsc, iic, inbc, velc = (scal[:, i:i + 1].to(cd) for i in range(6))
@@ -153,16 +157,47 @@ def mega_edge_ttc_reference(rt, rows, scal, fmat, fmat_sw, shift1, gmat,
         spec_sw = (x64 @ fmat_sw.to(torch.float64)).to(cd)
         return spec * cphi + spec_sw * qr
 
-    sr, se, sw = rolled(rr_c), rolled(e), rolled(w)
+    def ew(v):   # the ew_dtype input rounding of the e/w taps
+        return v.to(ew_dtype).to(cd)
+
+    spec = torch.cat([rolled(rr_c), ew(rolled(e)), ew(rolled(w))], dim=1)
     wsum = inbc * torch.clamp(R[:, 0:1] * 1e3, max=1.0)
-    out = edge_render_reference(sr, se, sw, fsc, wsum, gmat, c_frac, max_range,
-                                ew_dtype)
+    return spec, fsc[:, 0], wsum[:, 0], velc[:, 0]
+
+
+def mega_edge_ttc_reference(rt, rows, scal, fmat, fmat_sw, shift1, gmat,
+                            c_frac, noise, cosines, side_dist,
+                            max_range: float, ttc_thresh: float,
+                            agents_per_env: int, t_bins: int,
+                            ew_dtype=torch.bfloat16, sines=None, opp=None,
+                            pool_off=None):
+    """Plain PyTorch version of the megakernel (same signature): the
+    spectra kernel's twin :func:`mega_spectra_reference`, then the render
+    kernel's: :func:`edge_render_reference`, :func:`noise_ttc_reference`
+    and, with ``opp``, :func:`opp_cast_reference`.
+
+    rt (N, 5T) texture, rows (K,) texture-row index, scal (K, 8) per-row
+    [dx, dy, f_s, i_f, inb, vel, -, -], fmat/fmat_sw/shift1 (T, T), gmat
+    (T, 3B), c_frac/cosines/side_dist (B,), and noise (E, B) with K = E *
+    agents_per_env, or with ``pool_off`` (1,) int32 the (rows, B) pool of
+    ``noise_mode="pool_rot"`` (see :func:`pool_rot_rows`).  ``opp``
+    (K, 10 * n_opp) with ``sines`` (B,) adds the opponent ray cast.  Returns
+    (scan (K, B), hit (K,) float 0/1); the hits come from the scan before
+    the opponent cast.  Computes in fmat's dtype; matrix products are
+    torch.matmul, so on a CUDA device TF32 must be off for float32."""
+    T = t_bins
+    spec, f_s, wsum, vel = mega_spectra_reference(
+        rt, rows, scal, fmat, fmat_sw, shift1, max_range, t_bins, ew_dtype)
+    sr, se, sw = (spec[:, i * T:(i + 1) * T] for i in range(3))
+    out = edge_render_reference(sr, se, sw, f_s[:, None], wsum[:, None], gmat,
+                                c_frac, max_range, ew_dtype)
     if pool_off is not None:
-        noise = noise[pool_rot_rows(k_n // agents_per_env, noise.shape[0], pool_off)]
-    out, hit = noise_ttc_reference(out, noise, velc, cosines, side_dist,
+        noise = noise[pool_rot_rows(rows.shape[0] // agents_per_env,
+                                    noise.shape[0], pool_off)]
+    out, hit = noise_ttc_reference(out, noise, vel[:, None], cosines, side_dist,
                                    ttc_thresh, agents_per_env)
     if opp is not None:
-        out = opp_cast_reference(out, opp.to(cd), cosines, sines)
+        out = opp_cast_reference(out, opp.to(fmat.dtype), cosines, sines)
     return out, hit
 
 
@@ -223,25 +258,29 @@ def _lib():
     lib = _build.load("mega_edge_ttc")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mega_edge_ttc_launch.argtypes = [
-        p, i, p, p, p, p, p, p, i, p, p, p, p, i, i, i, f, f, i, p, p, i, p, i, p]
+        p, i, p, p, p, p, p, p, i, p, p, p, p, i, i, i, f, f, i, p, p, i, p, i,
+        p, i, p]
     lib.mega_edge_ttc_launch.restype = ctypes.c_int
-    lib.mega_edge_ttc_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.mega_edge_ttc_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_int)]
     lib.mega_edge_ttc_occupancy.restype = ctypes.c_int
     return lib
 
 
 def resident_blocks(n_opp: int, pool: bool, rt_bf16: bool = True,
-                    noise_bf16: bool = True) -> int:
-    """Blocks per SM the card holds at once of the kernel instance these
-    operands select (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its
-    shared memory): the ``__launch_bounds__`` minimum of two, if registers
-    and shared memory allow it.  Needs the card."""
-    blocks = ctypes.c_int(0)
+                    noise_bf16: bool = True) -> dict:
+    """Blocks per SM the card holds at once of the two kernels these
+    operands select (cudaOccupancyMaxActiveBlocksPerMultiprocessor at their
+    shared memory): {"spectra": n, "render": n}, each at least the
+    ``__launch_bounds__`` minimum of its kernel (one) if registers and
+    shared memory allow it.  Needs the card."""
+    spectra, render = ctypes.c_int(0), ctypes.c_int(0)
     err = _lib().mega_edge_ttc_occupancy(n_opp, int(pool), int(rt_bf16),
-                                         int(noise_bf16), ctypes.byref(blocks))
+                                         int(noise_bf16), ctypes.byref(spectra),
+                                         ctypes.byref(render))
     if err != 0:
         raise RuntimeError(f"mega_edge_ttc occupancy query failed: CUDA error {err}")
-    return blocks.value
+    return {"spectra": spectra.value, "render": render.value}
 
 
 def variant(opp, pool_off) -> str:
@@ -297,19 +336,48 @@ def mega_edge_ttc(rt, rows, scal, fmat, fmat_sw, shift1, gmat, c_frac, noise,
 
     Same arguments and result as :func:`mega_edge_ttc_reference`; ``rows``
     must index ``rt`` (``scan_fast.mega_operands`` clamps them).  On CUDA
-    tensors it launches the kernel or raises: a build, check or launch
-    failure is an error, never a fallback.  ``mega_edge_ttc.launches``
-    counts kernel launches by variant (see :func:`variant`)."""
-    b_n = c_frac.shape[0]
-    consts = (fmat, fmat_sw, shift1, gmat, c_frac, cosines, side_dist)
-    _check(rt, rows, scal, consts, noise, agents_per_env, t_bins, b_n,
-           sines, opp, pool_off)
+    tensors it launches the spectra kernel and then the render kernel on
+    the current stream, or raises: a build, check or launch failure is an
+    error, never a fallback.  The spectra travel between the two through a
+    workspace of K x (3T + 3) float32 (50 MB at K = 32768) that each call
+    takes from PyTorch's caching allocator with ``torch.empty``.
+    ``mega_edge_ttc.launches`` counts calls (each launches both kernels) by
+    variant (see :func:`variant`)."""
+    args = dict(rt=rt, rows=rows, scal=scal, fmat=fmat, fmat_sw=fmat_sw,
+                shift1=shift1, gmat=gmat, c_frac=c_frac, noise=noise,
+                cosines=cosines, side_dist=side_dist, max_range=max_range,
+                ttc_thresh=ttc_thresh, agents_per_env=agents_per_env,
+                t_bins=t_bins, ew_dtype=ew_dtype, sines=sines, opp=opp,
+                pool_off=pool_off)
+    _check(rt, rows, scal, (fmat, fmat_sw, shift1, gmat, c_frac, cosines,
+                            side_dist), noise, agents_per_env, t_bins,
+           c_frac.shape[0], sines, opp, pool_off)
+    if rt.device.type == "cpu":
+        return mega_edge_ttc_reference(**args)
+    out, hit = mega_stages(3, None, **args)
+    mega_edge_ttc.launches[variant(opp, pool_off)] += 1
+    return out, hit
+
+
+def mega_workspace(k_n: int, t_bins: int, device) -> torch.Tensor:
+    """The spectra kernel's output and the render kernel's input: the
+    rolled spectra (K, 3T) and f_s, wsum and vel (K,) in one float32
+    buffer."""
+    return torch.empty((k_n * (3 * t_bins + 3),), dtype=torch.float32, device=device)
+
+
+def mega_stages(stages: int, ws, rt, rows, scal, fmat, fmat_sw, shift1, gmat,
+                c_frac, noise, cosines, side_dist, max_range: float,
+                ttc_thresh: float, agents_per_env: int, t_bins: int,
+                ew_dtype=torch.bfloat16, sines=None, opp=None, pool_off=None):
+    """Launch the megakernel's kernels on CUDA operands: ``stages`` 1 the
+    spectra kernel, 2 the render kernel (on what a spectra launch left in
+    ``ws``), 3 both (:func:`mega_edge_ttc`'s call).  ``ws`` is a
+    :func:`mega_workspace`, or None for a new one.  Counts nothing: a call
+    of one stage alone is a measurement.  -> (out (K, B), hit (K,)); with
+    stages 1 their contents are undefined."""
     device = rt.device
-    if device.type == "cpu":
-        return mega_edge_ttc_reference(
-            rt, rows, scal, fmat, fmat_sw, shift1, gmat, c_frac, noise,
-            cosines, side_dist, max_range, ttc_thresh, agents_per_env, t_bins,
-            ew_dtype, sines, opp, pool_off)
+    b_n = c_frac.shape[0]
     if device.type != "cuda":
         raise ValueError(f"mega_edge_ttc runs on cuda or cpu, not {device}")
     if t_bins != T_BINS:
@@ -348,6 +416,8 @@ def mega_edge_ttc(rt, rows, scal, fmat, fmat_sw, shift1, gmat, c_frac, noise,
     hit = torch.empty((k_n,), dtype=torch.float32, device=device)
     if k_n == 0:
         return out, hit
+    if ws is None:
+        ws = mega_workspace(k_n, t_bins, device)
     err = _lib().mega_edge_ttc_launch(
         rt.data_ptr(), int(rt.dtype == torch.bfloat16), rows.data_ptr(),
         scal.data_ptr(), fmat.data_ptr(), gmat.data_ptr(), c_frac.data_ptr(),
@@ -355,10 +425,10 @@ def mega_edge_ttc(rt, rows, scal, fmat, fmat_sw, shift1, gmat, c_frac, noise,
         cosines.data_ptr(), side_dist.data_ptr(), out.data_ptr(),
         hit.data_ptr(), k_n, b_n, agents_per_env, float(max_range),
         float(ttc_thresh), int(ew_dtype == torch.bfloat16), sin_p, opp_p,
-        n_opp, off_p, pool_rows, torch.cuda.current_stream(device).cuda_stream)
+        n_opp, off_p, pool_rows, ws.data_ptr(), stages,
+        torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mega_edge_ttc kernel launch failed: CUDA error {err}")
-    mega_edge_ttc.launches[variant(opp, pool_off)] += 1
     return out, hit
 
 

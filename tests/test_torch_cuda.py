@@ -7,13 +7,15 @@ This file imports no JAX, so it also runs on a GPU machine without JAX:
 It covers what chip_smoke.py does not: every storage variant of the scan
 megakernel (bfloat16 / float32 texture, bfloat16 pool / float32 fresh
 noise, bfloat16 / float32 e/w taps), its opponent and pool_rot variants for
-2 and 4 agents, row and beam counts around its blocks and the blocks a SM
-each instance holds, the state kernel (also with a replaced vehicle),
-the epilogue kernels and the spectral render kernel against their twins,
-kernels 5 and 7 at row and beam counts around the tiles of
-csrc/rowtile_gemm.cuh (and at B = 1081, their 4-byte-copy instance),
-refused launches and wrong dtypes, and whole env steps on the GPU (default,
-unfused and spectral modes) against the same steps on the CPU.
+2 and 4 agents, its spectra kernel alone against its twin, row and beam
+counts around the tiles of its two kernels and the blocks a SM each
+instance holds, the state kernel (also with a replaced vehicle), the
+epilogue kernels and the spectral render kernel against their twins, the
+edge epilogues (csrc/edge_render.cuh, the megakernel's render) and kernels
+5 and 7 (csrc/rowtile_gemm.cuh) at row and beam counts around their tiles
+(and at B = 1081, their 4-byte-copy paths), refused launches and wrong
+dtypes, and whole env steps on the GPU (default, unfused and spectral
+modes) against the same steps on the CPU.
 """
 
 import dataclasses
@@ -176,7 +178,7 @@ def test_kernel_rejects_what_it_cannot_take(gpu_params):
         scan_kernels.mega_edge_ttc(**{**ops, "noise": params.noise_pool,
                                       "pool_off": torch.zeros(1, dtype=torch.int64,
                                                               device=dev)})
-    # 1000 opponents need 320 KB of shared memory a block: refused, and said so
+    # 1000 opponents need 2.6 MB of shared memory a block: refused, and said so
     k_n = ops["rows"].shape[0]
     with pytest.raises(RuntimeError, match="launch failed"):
         scan_kernels.mega_edge_ttc(**{**ops, "sines": params.tables.beam_sines,
@@ -189,13 +191,17 @@ def test_kernel_rejects_what_it_cannot_take(gpu_params):
         state_kernels.prestep(cfg, params, *args, None)
 
 
-# The megakernel's blocks (csrc/mega_edge_ttc.cu): 8 rows a block, whose
-# 256 threads stride over the beams.  Row counts near the block's edges for
-# 1 to 4 agents, beam counts on both sides of the stride and 1081, every
-# variant, bf16 and float32 storage (texture, noise and e/w taps), and the
-# pool offset at 0 and at rows - 37.
-MEGA_BM, MEGA_BN = 8, 256
-MEGA_ROWS = [(-(-k // a) * a, a) for k in (2, MEGA_BM - 2, MEGA_BM + 2, 3 * MEGA_BM + 4)
+# The megakernel's tiles: its render kernel (csrc/edge_render.cuh) takes 64
+# rows a block tile and 64 beams a beam tile, its spectra kernel
+# (csrc/mega_edge_ttc.cu) 32 rows a tile.  Row counts near the render's
+# block edges (BM - 1, BM, BM + 1, which straddle the spectra tiles too, and
+# 3 BM + 4) for 1 to 4 agents (rounded up to a multiple of the agents),
+# beam counts on both sides of a beam tile and 1081 (the 4-byte-copy
+# path), every variant, bf16 and float32 storage (texture, noise and e/w
+# taps), and the pool offset at 0 and at rows - 37.
+MEGA_BM, MEGA_BN = 64, 64
+MEGA_ROWS = [(-(-k // a) * a, a)
+             for k in (2, MEGA_BM - 1, MEGA_BM, MEGA_BM + 1, 3 * MEGA_BM + 4)
              for a in (1, 2, 3, 4)]
 MEGA_ALL = ("plain", "opp", "pool_rot", "opp+pool_rot")
 MEGA_EDGES = (
@@ -275,17 +281,151 @@ def test_mega_tile_edges_match_plain_twin(params_by_beams, k_n, agents, b_n, var
 
 
 def test_mega_variants_hold_their_blocks(gpu_params):
-    """Every megakernel instance fits the blocks a SM its __launch_bounds__
-    pins (csrc/mega_edge_ttc.cu MIN_BLOCKS)."""
+    """Every instance of the megakernel's two kernels fits the blocks a SM
+    its __launch_bounds__ pins: the spectra kernel's S_MIN_BLOCKS
+    (csrc/mega_edge_ttc.cu) and the render kernel's MIN_BLOCKS
+    (csrc/edge_render.cuh)."""
     import re
     from pathlib import Path
 
-    src = (Path(scan_kernels.__file__).parents[1] / "csrc" / "mega_edge_ttc.cu").read_text()
-    pinned = int(re.search(r"constexpr int MIN_BLOCKS = (\d+);", src).group(1))
+    csrc = Path(scan_kernels.__file__).parents[1] / "csrc"
+    pinned = {
+        "spectra": int(re.search(r"constexpr int S_MIN_BLOCKS = (\d+);",
+                                 (csrc / "mega_edge_ttc.cu").read_text()).group(1)),
+        "render": int(re.search(r"constexpr int MIN_BLOCKS = (\d+);",
+                                (csrc / "edge_render.cuh").read_text()).group(1))}
     for n_opp, pool in ((0, False), (0, True), (1, False), (1, True), (3, True)):
         for rt_bf16 in (True, False):
             for noise_bf16 in (True, False):
-                assert scan_kernels.resident_blocks(n_opp, pool, rt_bf16, noise_bf16) >= pinned
+                blocks = scan_kernels.resident_blocks(n_opp, pool, rt_bf16, noise_bf16)
+                assert blocks.keys() == pinned.keys()
+                for kernel, n in pinned.items():
+                    assert blocks[kernel] >= n, (kernel, n_opp, pool, rt_bf16, noise_bf16)
+
+
+@pytest.mark.parametrize("rt_dtype, ew_dtype", [("bfloat16", "bfloat16"),
+                                                ("float32", "float32"),
+                                                ("bfloat16", "float32")])
+@pytest.mark.parametrize("k_n", [2, 31, 32, 33, 3 * 32 + 4, 2002])
+def test_mega_spectra_kernel_matches_plain_twin(gpu_params, k_n, rt_dtype, ew_dtype):
+    """The spectra kernel alone (scan_kernels.mega_stages(1, ...)) against
+    mega_spectra_reference, at row counts around its 32-row tiles: f_s,
+    wsum and vel exactly equal; the spectra within one bf16 step of the
+    twin's, |diff| <= 2^-7 |twin| + 1e-6, and all but 1 % of them within
+    2^-20 |twin| + 1e-6.  Not bit-equal, because the kernel sums the rfft
+    in float64 in another order than the twin's float64 matmul (a float32
+    rounding of the sum can then differ by one step, which the bf16
+    rounding of the e/w spectra can widen to one bf16 step) and its cosf,
+    sinf and atan2f may differ from PyTorch's in the last bit."""
+    _spectra_against_twin(gpu_params, k_n, rt_dtype, ew_dtype)
+
+
+@pytest.mark.parametrize("k_n", [33, 3 * 32 + 4])
+def test_mega_spectra_kernel_takes_negative_heading_bins(gpu_params, k_n):
+    """The spectra kernel with integer heading bins i_f in [-300, -1]
+    (scal[:, 3]; the env's own producers give [0, T)): the twiddle's phase
+    index i_f * l mod T is a floor-mod as in the twin, so the rows agree
+    under the bar of test_mega_spectra_kernel_matches_plain_twin."""
+    gen = torch.Generator().manual_seed(k_n)
+    i_f = torch.randint(-300, 0, (k_n,), generator=gen).float()
+    _spectra_against_twin(gpu_params, k_n, "bfloat16", "bfloat16", i_f)
+
+
+def _spectra_against_twin(gpu_params, k_n, rt_dtype, ew_dtype, i_f=None):
+    """The spectra kernel's workspace against mega_spectra_reference on
+    k_n rows of random free poses (with i_f, if given, as their integer
+    heading bins): per-row outputs exact, spectra within the bar above."""
+    cfg, params = gpu_params
+    dev = params.rtex.rt.device
+    e_n = -(-k_n // 2)
+    gen = torch.Generator(device=dev).manual_seed(k_n + 11)
+    poses = random_free_poses(params, e_n * 2, gen).reshape(e_n, 2, 3)
+    vel = -2.0 + 10.0 * torch.rand((e_n, 2), generator=gen, device=dev)
+    ops = scan_fast.mega_operands(poses, params.tables, params.tmap, params.rtex, cfg,
+                                  params.noise_pool[:e_n], vel)
+    ops.update(rt=ops["rt"].to(getattr(torch, rt_dtype)), ew_dtype=getattr(torch, ew_dtype),
+               rows=ops["rows"][:k_n].contiguous(), scal=ops["scal"][:k_n].contiguous(),
+               agents_per_env=1, noise=params.noise_pool[:1].expand(k_n, -1).contiguous())
+    if i_f is not None:
+        ops["scal"][:, 3] = i_f.to(dev)
+    ws = scan_kernels.mega_workspace(k_n, 128, dev)
+    scan_kernels.mega_stages(1, ws, **ops)
+    spec, f_s, wsum, vel_r = scan_kernels.mega_spectra_reference(
+        ops["rt"], ops["rows"], ops["scal"], ops["fmat"], ops["fmat_sw"], ops["shift1"],
+        ops["max_range"], 128, ops["ew_dtype"])
+    torch.cuda.synchronize()
+    got = ws[:k_n * 384].reshape(k_n, 384)
+    rows = ws[k_n * 384:].reshape(3, k_n)
+    assert torch.equal(rows[0], f_s) and torch.equal(rows[1], wsum)
+    assert torch.equal(rows[2], vel_r)
+    assert torch.isfinite(got).all()
+    err = (got - spec).abs()
+    assert bool((err <= 2.0 ** -7 * spec.abs() + 1e-6).all()), float(err.max())
+    assert float((err > 2.0 ** -20 * spec.abs() + 1e-6).float().mean()) < 0.01
+
+
+# The edge epilogues 6, 3 and 4 on csrc/edge_render.cuh (the megakernel's
+# render kernel): 64 rows a block tile, 64 beams a beam tile.  Row counts
+# around the block tile (BM - 1, BM, BM + 1, 3 BM + 4), beam counts 1080,
+# on both sides of a beam tile and 1081 (the 4-byte path), bf16 and float32
+# e/w taps and noise.
+RENDER_BM, RENDER_BN = 64, 64
+RENDER_EDGES = (
+    [(name, k, 1080, "bfloat16") for k in (RENDER_BM - 1, RENDER_BM, RENDER_BM + 1,
+                                           3 * RENDER_BM + 4)
+     for name in ("theta_shuffle_blend_edge", "theta_shuffle_blend_edge_ttc",
+                  "theta_shuffle_blend_edge_ttc_opp")]
+    + [(name, 3 * RENDER_BM + 4, b, dt) for b in (RENDER_BN - 4, RENDER_BN + 4, 1081)
+       for dt in ("bfloat16", "float32")
+       for name in ("theta_shuffle_blend_edge", "theta_shuffle_blend_edge_ttc",
+                    "theta_shuffle_blend_edge_ttc_opp")])
+
+
+@pytest.mark.parametrize("name, k_n, b_n, dtype", RENDER_EDGES, ids=lambda v: str(v))
+def test_render_tile_edges_match_plain_twin(params_by_beams, name, k_n, b_n, dtype):
+    """Each edge epilogue at row and beam counts around the render tile, on
+    the bilinear prep chain's spectra (one agent a car, or for the opponent
+    form cars within 2.5 m of each other): the scan bar and equal hits; the
+    guards (some hits, some beams shortened by an opponent) hold from
+    3 BM rows on."""
+    from chip_smoke import blend_operands
+    from red_gym_tpu_torch.ops import blend_kernels
+
+    agents = 1
+    if name.endswith("_opp"):   # opponents: 2 agents, or 3 for an odd row count
+        agents = 3 if k_n % 2 else 2
+        k_n = -(-k_n // agents) * agents
+    cfg, params = params_by_beams(b_n)
+    cfg = dataclasses.replace(cfg, num_agents=agents, rt_spatial="bilinear")
+    dev = params.rtex.rt.device
+    gen = torch.Generator(device=dev).manual_seed(k_n * 5 + b_n)
+    e_n = k_n // agents
+    poses = (close_poses(params, e_n, agents, gen) if agents > 1
+             else random_free_poses(params, e_n, gen)[:, None])
+    kw = blend_operands(cfg, params, poses, gen)[name]
+    f32 = dtype == "float32"
+    kw["ew_dtype"] = torch.float32 if f32 else torch.bfloat16
+    if "noise" in kw and f32:
+        kw["noise"] = kw["noise"].float()
+    kernel = getattr(blend_kernels, name)
+    before = kernel.launches
+    got = kernel(**kw)
+    assert kernel.launches == before + 1
+    want = getattr(blend_kernels, name + "_reference")(**kw)
+    torch.cuda.synchronize()
+    out, ref = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+    err = (out - ref).abs()
+    assert out.shape == (k_n, b_n) and torch.isfinite(out).all()
+    assert float(torch.quantile(err.flatten(), 0.99)) < 1e-3
+    assert float((err > 4 * float(params.rtex.cell)).float().mean()) < 2e-3
+    if isinstance(got, tuple):
+        assert torch.equal(got[1], want[1])
+        if k_n >= 3 * RENDER_BM:
+            assert got[1].sum() > 0, "fixture guard: no iTTC hits"
+    if name.endswith("_opp") and k_n >= 3 * RENDER_BM:
+        base, _ = blend_kernels.theta_shuffle_blend_edge_ttc_reference(
+            **{k: v for k, v in kw.items() if k not in ("sines", "opp")})
+        assert (out < base - 1e-6).any(), "fixture guard: no beam shortened"
 
 
 BLEND_CASES = (
@@ -362,7 +502,7 @@ def test_blend_kernels_reject_what_they_cannot_take(gpu_params):
         blend_kernels.theta_shuffle_blend(wide, kw["f_s"], kw["wsum"],
                                           torch.zeros((256, 3 * 1080), device=dev),
                                           kw["c_frac"], 30.0)
-    # 1000 opponents need 320 KB of shared memory a block: refused, and said so
+    # 1000 opponents need 2.6 MB of shared memory a block: refused, and said so
     with pytest.raises(RuntimeError, match="launch failed"):
         fn(**{**kw, "opp": torch.zeros((16, 10_000), device=dev)})
     # the unfused scan's float32 matrix products refuse TF32
