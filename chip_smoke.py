@@ -20,7 +20,10 @@ line:
    (``median_ms``: R calls back to back between one pair of events, R = 10
    for calls under 2 ms, so that the wrapper's host time hides behind the
    card's work as it does on a path; the same for kernel, twin and library
-   call) and the kernel's registers and spill bytes from its ptxas report:
+   call), the kernel's own time on the device (``device_ms``: the median
+   duration of its device kernels under torch.profiler over 60 launches,
+   without the wrapper's host time) and its registers and spill bytes from
+   its ptxas report:
    - mega_edge_ttc, plain, on operands made by the main path's own prep
      from random free poses; the call launches the spectra kernel and the
      render kernel, and each is also timed alone (``spectra_ms``,
@@ -32,8 +35,10 @@ line:
    - the scan bar: p99 |diff| < 1e-3 m, < 0.2 % of beams off by more than
      4 texture cells, iTTC hits equal;
    - prestep (the pre-scan state kernel) on random in-range states and
-     actions: texture row, steer_cnt, i_f and inb exactly equal, float
-     outputs within 1e-6 (bit-exactness is reported);
+     actions: all five outputs bit-equal to the twin; beside its times the
+     device time of an empty kernel of its grid and block (``floor_ms``)
+     and its wrapper's host time a call (``host_us``: ``host_us``, 200
+     calls behind ``torch.cuda._sleep`` on the host clock);
    - the four epilogue kernels of the unfused scan (theta_shuffle_blend
      and its edge, edge + iTTC and edge + iTTC + opponent forms) on the
      rolled spectra of the bilinear config's prep chain, cars within 2.5 m
@@ -83,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -93,8 +99,11 @@ ENVS, AGENTS, BEAMS = 16384, 2, 1080
 STEPS, WARMUP_STEPS = 200, 10
 TRACK = "track_0019"
 TIMING_REPS = 20
+DEVICE_CALLS = 60        # launches under torch.profiler for a kernel's device time
+DEVICE_WINDOWS = 4       # profiler windows at most to see them all
+HOST_CALLS = 200         # calls timed on the host clock for a wrapper's host time
+SLEEP_CYCLES = 50_000_000  # torch.cuda._sleep ahead of each host batch (~25 ms)
 P99_TOL, FAR_FRAC_TOL = 1e-3, 2e-3   # the f32 bar of tests/test_scan_fast.py
-PRESTEP_TOL = 1e-6                   # prestep float outputs, kernel vs twin
 NOISE_MARGIN = 0.1                   # 10 sigma of the 1 cm scan noise
 # published H100 SXM peaks, the card's fastest rate for each type: float32
 # FMAs outside the tensor cores (TF32 is another type), bf16 and float64 on
@@ -148,6 +157,65 @@ def median_ms(fn, reps: int) -> float:
     r = 10 if window(1) < 2.0 else 1
     times = sorted(window(r) for _ in range(reps))
     return times[len(times) // 2]
+
+
+def device_ms(fn, kernels: tuple[str, ...], calls: int = DEVICE_CALLS) -> dict:
+    """The card's own time of one call of ``fn``, without the wrapper's
+    host time: {name: ms}, the median duration of the device kernels whose
+    names contain each of ``kernels`` over at least ``calls`` launches, and
+    their sum under "total" (a call that launches two kernels, as the
+    megakernel does, takes both).  The calls run in windows of ``calls``
+    under torch.profiler, a window more while the profiler has dropped
+    kernel records (it drops some now and then), at most DEVICE_WINDOWS."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    durs = {name: [] for name in kernels}
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(DEVICE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for name in kernels:
+                    if name in e.name:
+                        durs[name].append(e.time_range.elapsed_us())
+        if min(len(d) for d in durs.values()) >= calls:
+            break
+    out = {}
+    for name, d in durs.items():
+        if len(d) < calls:
+            fail(f"the profiler saw {len(d)} launches of {name} in "
+                 f"{DEVICE_WINDOWS} windows of {calls} calls")
+        d.sort()
+        out[name] = d[len(d) // 2] / 1e3
+    out["total"] = sum(out.values())
+    return out
+
+
+def host_us(fn, calls: int = HOST_CALLS, batch: int = 20) -> float:
+    """Host time of one call of ``fn`` in microseconds: the median over
+    ``calls // batch`` batches of ``batch`` calls, each batch timed with
+    time.perf_counter while enqueued behind torch.cuda._sleep, so that the
+    host never waits on the card."""
+    import torch
+
+    for _ in range(batch):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls // batch):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        times.append((time.perf_counter() - t0) / batch)
+        torch.cuda.synchronize()
+    times.sort()
+    return 1e6 * times[len(times) // 2]
 
 
 def clock_under_load(fn, ms: float, seconds: float = 0.5) -> str:
@@ -306,6 +374,7 @@ def bound(moved: int, f32: float = 0.0, bf16: float = 0.0, f64: float = 0.0) -> 
 # and a render kernel whose variants are instances of their own
 # (<opponents, pool_rot, noise type>)
 MEGA_SPECTRA = "mega_spectra_kernel<__nv_bfloat16>"
+MEGA_DEVICE = ("mega_spectra_kernel", "mega_render_kernel")  # a call's two kernels
 KERNEL_FUNCTIONS = {
     "mega_edge_ttc": ("mega_edge_ttc", "mega_render_kernel<false, false, __nv_bfloat16>"),
     "mega_edge_ttc+opp": ("mega_edge_ttc", "mega_render_kernel<true, false, __nv_bfloat16>"),
@@ -331,20 +400,26 @@ def resources(reports: dict, name: str, fn: str | None = None) -> dict:
     return reports[lib][fn]
 
 
-def timed(label: str, kernel, plain, lims: dict, res: dict, library=None) -> dict:
+def timed(label: str, kernel, plain, lims: dict, res: dict, functions: tuple[str, ...],
+          library=None) -> dict:
     """Median times of the kernel, its plain twin and, where one PyTorch
-    call computes the kernel's arithmetic, that call, beside the bound and
-    the kernel's registers and spills."""
+    call computes the kernel's arithmetic, that call (event windows,
+    ``median_ms``), the kernel's device time (``device_ms`` of the device
+    kernels named ``functions``), beside the bound and the kernel's
+    registers and spills."""
     ms = median_ms(kernel, TIMING_REPS)
+    dev_ms = device_ms(kernel, functions)["total"]
     plain_ms = median_ms(plain, TIMING_REPS)
     library_ms = None if library is None else median_ms(library, TIMING_REPS)
     lib = "" if library is None else f", library call {library_ms:.3f} ms"
     regs = (f"; {res['regs']} registers, {res['spill_bytes']} spill bytes" if res
             else "")
-    say("kernel", f"{label}: median of {TIMING_REPS}: CUDA kernel {ms:.3f} ms, "
+    say("kernel", f"{label}: median of {TIMING_REPS}: CUDA kernel {ms:.4f} ms, "
+        f"on the device {dev_ms:.4f} ms (profiler, median of >= {DEVICE_CALLS} launches), "
         f"plain PyTorch twin {plain_ms:.3f} ms{lib}; bound {lims['bound_ms']:.4f} ms "
         f"by {lims['bound_by']}{regs}")
-    return {"ms": ms, "plain_ms": plain_ms, **lims, "library_ms": library_ms, **res}
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **lims,
+            "library_ms": library_ms, **res}
 
 
 def tap_work(k_n: int, t_bins: int, b_n: int, ew_dtype) -> dict:
@@ -398,20 +473,27 @@ def mega_stage_times(label: str, ops, reports, n_opp: int) -> dict:
 
     ws = scan_kernels.mega_workspace(ops["rows"].shape[0], ops["t_bins"],
                                      ops["rt"].device)
-    spectra_ms = median_ms(lambda: scan_kernels.mega_stages(1, ws, **ops), TIMING_REPS)
-    render_ms = median_ms(lambda: scan_kernels.mega_stages(2, ws, **ops), TIMING_REPS)
+    spectra = functools.partial(scan_kernels.mega_stages, 1, ws, **ops)
+    render = functools.partial(scan_kernels.mega_stages, 2, ws, **ops)
+    spectra_ms = median_ms(spectra, TIMING_REPS)
+    render_ms = median_ms(render, TIMING_REPS)
+    spectra_dev = device_ms(spectra, ("mega_spectra_kernel",))["total"]
+    render_dev = device_ms(render, ("mega_render_kernel",))["total"]
     torch.cuda.synchronize()
     lims = spectra_bound(ops)
     name = "mega_edge_ttc" if label == "plain" else f"mega_edge_ttc+{label}"
     blocks = scan_kernels.resident_blocks(n_opp, "pool_rot" in label)
     kernels = {"spectra": {"function": MEGA_SPECTRA, **resources(reports, name, MEGA_SPECTRA),
-                           "blocks_per_sm": blocks["spectra"], "ms": spectra_ms, **lims},
+                           "blocks_per_sm": blocks["spectra"], "ms": spectra_ms,
+                           "device_ms": spectra_dev, **lims},
                "render": {"function": KERNEL_FUNCTIONS[name][1], **resources(reports, name),
-                          "blocks_per_sm": blocks["render"], "ms": render_ms}}
+                          "blocks_per_sm": blocks["render"], "ms": render_ms,
+                          "device_ms": render_dev}}
     say("kernel", f"{label}: spectra kernel bound {lims['bound_ms']:.4f} ms by "
         f"{lims['bound_by']} (float64 at {F64_FLOPS / 1e12:.1f} TFLOP/s on the tensor cores)")
     for role, k in kernels.items():
-        say("kernel", f"{label}: {role} kernel alone {k['ms']:.3f} ms; {k['function']}: "
+        say("kernel", f"{label}: {role} kernel alone {k['ms']:.3f} ms, on the device "
+            f"{k['device_ms']:.4f} ms; {k['function']}: "
             f"{k['regs']} registers, {k['spill_bytes']} spill bytes, "
             f"{k['blocks_per_sm']} resident block(s) a SM")
     return {"spectra_ms": spectra_ms, "render_ms": render_ms, "kernels": kernels}
@@ -440,7 +522,7 @@ def mega_phase(cfg, params, dev, reports) -> dict:
     torch.cuda.synchronize()
     rec = {"plain": {"max_abs_err": scan_bar("plain", out_k, hit_k, out_r, hit_r, cell),
                      **timed("plain", lambda: mega(**ops), lambda: ref(**ops),
-                             mega_bound(ops, out_k, hit_k), {}),
+                             mega_bound(ops, out_k, hit_k), {}, MEGA_DEVICE),
                      **mega_stage_times("plain", ops, reports, 0)}}
 
     poses = close_poses(params, ENVS, AGENTS, gen)
@@ -462,7 +544,7 @@ def mega_phase(cfg, params, dev, reports) -> dict:
             fail(f"{name}: no beam shortened by an opponent")
         rec[name] = {"max_abs_err": err,
                      **timed(name, lambda: mega(**ops), lambda: ref(**ops),
-                             mega_bound(ops, out_k, hit_k), {}),
+                             mega_bound(ops, out_k, hit_k), {}, MEGA_DEVICE),
                      **mega_stage_times(name, ops, reports, opp.shape[-1] // 10)}
     return rec
 
@@ -505,7 +587,7 @@ def blend_phase(cfg, params, dev, reports) -> dict:
         rec[name] = {"max_abs_err": err,
                      **timed(name, lambda: kernel(**kw), lambda: twin(**kw),
                              blend_bound(kw, out_k, hit_k), resources(reports, name),
-                             library)}
+                             (KERNEL_FUNCTIONS[name][1].split("<")[0],), library)}
         if library is not None:
             under_load(name, lambda: kernel(**kw), library, rec[name])
     return rec
@@ -572,7 +654,8 @@ def spectral_phase(cfg, params, dev, reports) -> dict:
 
     rec = {"max_abs_err": err,
            **timed("theta_spectral_ttc", lambda: kernel(**kw), lambda: twin(**kw), lims,
-                   resources(reports, "theta_spectral_ttc"), library)}
+                   resources(reports, "theta_spectral_ttc"), ("theta_spectral_kernel",),
+                   library)}
     under_load("theta_spectral_ttc", lambda: kernel(**kw), library, rec)
     return rec
 
@@ -587,7 +670,10 @@ def under_load(label: str, kernel, library, rec: dict) -> None:
 
 
 def prestep_phase(cfg, params, dev, reports) -> dict:
-    """The state kernel against its eager twin on random in-range states."""
+    """The state kernel against its eager twin on random in-range states:
+    all five outputs bit-equal.  Beside the event-window time, its device
+    time, the device time of an empty kernel of its grid and block
+    (``floor_ms``) and its wrapper's host time a call (``host_us``)."""
     import torch
 
     from red_gym_tpu_torch.ops import state_kernels
@@ -605,18 +691,29 @@ def prestep_phase(cfg, params, dev, reports) -> dict:
     ints = dict(rows=(got[3], want[3]), steer_cnt=(got[2], want[2]),
                 i_f=(got[4][..., 3], want[4][..., 3]), inb=(got[4][..., 4], want[4][..., 4]))
     n_diff = {n: int((g != w).sum()) for n, (g, w) in ints.items()}
-    say("kernel", f"prestep: K={ENVS * AGENTS}: max |diff| {max_err:.3e}; bit-exact "
-        f"{exact}; integer mismatches {n_diff}")
+    kin = float((args[0][..., 3].abs() < 0.5).float().mean())
+    say("kernel", f"prestep: K={ENVS * AGENTS} ({100 * kin:.1f}% of rows in the kinematic "
+        f"branch): max |diff| {max_err:.3e}; bit-exact {exact}; integer mismatches {n_diff}")
     if any(n_diff.values()):
         fail(f"prestep: integer outputs differ from the twin: {n_diff}")
-    if not max_err <= PRESTEP_TOL:
-        fail(f"prestep: float outputs differ from the twin by {max_err}")
+    if not all(exact.values()):
+        fail(f"prestep: outputs not bit-equal to the twin: {exact}, max |diff| {max_err}")
     k_n = ENVS * AGENTS
     lims = bound(nbytes(*args, pack, *got), f32=float(PRESTEP_OPS_PER_ROW * k_n))
-    return {"max_abs_err": max_err,
-            **timed("prestep", lambda: state_kernels.prestep(cfg, params, *args, pack),
-                    lambda: state_kernels.prestep_reference(cfg, params, *args), lims,
-                    resources(reports, "prestep"))}
+
+    def kernel():
+        state_kernels.prestep(cfg, params, *args, pack)
+
+    rec = timed("prestep", kernel,
+                lambda: state_kernels.prestep_reference(cfg, params, *args), lims,
+                resources(reports, "prestep"), ("prestep_kernel",))
+    floor_ms = device_ms(lambda: state_kernels.launch_floor(k_n, dev),
+                         ("prestep_floor_kernel",))["total"]
+    wrapper_us = host_us(kernel)
+    say("kernel", f"prestep: floor (an empty kernel of its grid and block, profiler) "
+        f"{floor_ms:.4f} ms; wrapper host time {wrapper_us:.1f} us a call "
+        f"(median of {HOST_CALLS // 20} batches of 20 calls behind torch.cuda._sleep)")
+    return {"max_abs_err": max_err, **rec, "floor_ms": floor_ms, "host_us": wrapper_us}
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,221 @@
+#!/usr/bin/env python3
+"""Same-card A/B of the port's pre-scan state kernel between another
+checkout of this repository and this one, on an NVIDIA GPU.
+
+    python3 prestep_ab.py OTHER [--json PATH]
+
+``OTHER`` is a checkout of another commit, for example the parent's
+``git archive`` unpacked under ``_checkout/``.  Each checkout runs in a
+subprocess of its own, with its own ``red_gym_tpu_torch`` (its kernel built
+from its sources), in turns OTHER, this, this, OTHER, at K = 16384 x 2 rows
+of the default config (track_0019, float32) on two input sets: ``random``
+(``chip_smoke.random_states``, about a quarter of the cars in the kinematic
+branch) and ``rollout`` (the cars of the default path after 10 steps of the
+random policy).  Each run reports, through the functions both checkouts
+share:
+
+- ``equal``: all five outputs of ``state_kernels.prestep`` ``torch.equal``
+  to ``prestep_reference``, for RK4 and Euler;
+- ``device_ms``: the kernel's own time on the card a call
+  (``chip_smoke.device_ms``: the profiler's median over 60 launches);
+- ``launch``: the grid, block and registers of the kernel, from the
+  profiler's trace;
+- ``host_us``: the host time of one ``state_kernels.prestep`` call and
+  ``section_us`` that of ``env.sim_step`` from its start to the return of
+  its state-kernel call, where the step is cut short (the scope check, the
+  pack and the call), both by ``chip_smoke.host_us`` (200 calls behind
+  ``torch.cuda._sleep``).
+
+Then ``floor_ms``: the device time of an empty kernel launched with each
+checkout's grid and block.  The last line is one JSON object with every
+number; ``--json`` also writes it to a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+KERNEL = "prestep_kernel"
+EMPTY_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+class _Stop(Exception):
+    """Cuts env.sim_step short after its state-kernel call."""
+
+
+def launch_shape(fn, out_dir: str, cs) -> dict:
+    """Grid, block and registers of the KERNEL that ``fn`` launches, from
+    the kernel record of a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(out_dir, f"trace-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    for e in events:
+        if e.get("cat") == "kernel" and KERNEL in e.get("name", ""):
+            a = e["args"]
+            return {"grid": a["grid"], "block": a["block"],
+                    "regs": a.get("registers per thread")}
+    cs.fail(f"no {KERNEL} record in the profiler's trace")
+
+
+def measure(root: str) -> dict:
+    """Every number of the checkout at ``root``, with its own package."""
+    import dataclasses
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)  # this tree's, in either run
+    spec.loader.exec_module(cs)
+    sys.path[:0] = [root]
+    import torch
+
+    from red_gym_tpu_torch import assets, env, rollout
+    from red_gym_tpu_torch.config import Integrator, SimConfig
+    from red_gym_tpu_torch.ops import _build, state_kernels
+
+    if not os.path.abspath(state_kernels.__file__).startswith(os.path.abspath(root)):
+        cs.fail(f"imported {state_kernels.__file__}, not the one under {root}")
+    dev = torch.device("cuda", 0)
+    os.environ["RED_GYM_TPU_TEXTURE_CACHE"] = "off"
+    cfg = SimConfig(num_agents=cs.AGENTS, num_beams=cs.BEAMS, scan_mode="fast")
+    params = env.make_params(cfg, assets.named_map_yaml(cs.TRACK), device=dev)
+    pack = state_kernels.pack_params(params.vehicle, params.tmap, params.rtex)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sets = {"random": cs.random_states(params, (cs.ENVS, cs.AGENTS), gen)}
+    start = torch.as_tensor(assets.waypoint_start_poses(cs.TRACK, cs.AGENTS),
+                            dtype=cfg.tdtype, device=dev)
+    policy = rollout.random_policy(cfg)
+    state, obs, *_ = rollout.batched_reset(
+        cfg, params, start.expand(cs.ENVS, cs.AGENTS, 3).contiguous(), gen)
+    carry, _ = rollout.make_rollout(cfg, params, policy, 10)(
+        rollout.RolloutCarry(state, obs), gen)
+    state, act = carry.state, policy(carry.obs, gen)
+    sets["rollout"] = (state.x, state.steer_buf, state.steer_cnt, act)
+
+    res = {"equal": {}, "device_ms": {}}
+    for name, args in sets.items():
+        for integ in (Integrator.RK4, Integrator.EULER):
+            c = dataclasses.replace(cfg, integrator=integ)
+            got = state_kernels.prestep(c, params, *args, pack)
+            want = state_kernels.prestep_reference(c, params, *args)
+            res["equal"][f"{name}/{integ.name}"] = all(
+                bool(torch.equal(g, w)) for g, w in zip(got, want))
+        res["device_ms"][name] = cs.device_ms(
+            lambda args=args: state_kernels.prestep(cfg, params, *args, pack),
+            (KERNEL,))["total"]
+    args = sets["random"]
+
+    def call():
+        state_kernels.prestep(cfg, params, *args, pack)
+
+    res["launch"] = launch_shape(call, _build.BUILD_DIR, cs)
+    res["host_us"] = cs.host_us(call)
+
+    prestep = state_kernels.prestep
+
+    def stop_after(*a):
+        prestep(*a)
+        raise _Stop
+
+    stop_after.launches = prestep.launches  # prestep counts through its name
+
+    def section():
+        try:
+            env.sim_step(cfg, params, state, act, gen)
+        except _Stop:
+            return
+        cs.fail("env.sim_step did not call state_kernels.prestep")
+
+    state_kernels.prestep = stop_after
+    res["section_us"] = cs.host_us(section)
+    state_kernels.prestep = prestep
+    return res
+
+
+def floors(shapes: dict, cs) -> dict:
+    """{checkout: device ms of an empty kernel of its grid and block}."""
+    import torch
+
+    from red_gym_tpu_torch.ops import _build
+
+    out_dir = os.path.join(_build.BUILD_DIR, "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib = os.path.join(out_dir, "empty.cu"), os.path.join(out_dir, "empty.so")
+    with open(src, "w") as f:
+        f.write(EMPTY_SRC)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        cs.fail(f"nvcc failed on the empty kernel:\n{proc.stdout}{proc.stderr}")
+    empty = ctypes.CDLL(lib)
+    empty.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream(0).cuda_stream
+    out = {}
+    for name, s in shapes.items():
+        blocks, threads = s["grid"][0], s["block"][0]
+        if s["grid"][1:] != [1, 1] or s["block"][1:] != [1, 1]:
+            cs.fail(f"{name}: a grid or block of more than one dimension: {s}")
+        out[name] = cs.device_ms(lambda b=blocks, t=threads: empty.empty_launch(b, t, stream),
+                                 ("empty_kernel",))["total"]
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", help="checkout of the commit to compare with")
+    ap.add_argument("--json", metavar="PATH", help="also write the result to this file")
+    ap.add_argument("--one", metavar="ROOT", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.one:
+        print(json.dumps(measure(a.one)), flush=True)
+        return
+    import chip_smoke as cs
+    import torch
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: this A/B needs a GPU")
+    smi = cs.nvidia_smi()
+    print(smi, flush=True)
+    roots = {"other": os.path.abspath(a.other), "this": ROOT}
+    runs = {n: [] for n in roots}
+    for n in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), a.other,
+                               "--one", roots[n]], capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            cs.fail(f"the run of {roots[n]} failed:\n{proc.stdout}\n{proc.stderr}")
+        runs[n].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        cs.say("ab", f"{n}: {runs[n][-1]}")
+    floor = floors({n: r[0]["launch"] for n, r in runs.items()}, cs)
+    cs.say("ab", f"floor ms: {floor}")
+    result = {"card": smi, "K": cs.ENVS * cs.AGENTS, "runs": runs, "floor_ms": floor}
+    if a.json:
+        os.makedirs(os.path.dirname(os.path.abspath(a.json)), exist_ok=True)
+        with open(a.json, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

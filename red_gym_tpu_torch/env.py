@@ -152,21 +152,23 @@ def init_state(cfg: SimConfig, poses) -> EnvState:
         step_idx=zeros(torch.int32))
 
 
-def use_state_kernel(cfg: SimConfig, params: EnvParams) -> bool:
-    """Resolution of cfg.state_kernel: "off" never, "auto" iff the config
-    and params are in the kernel's scope (state_kernels.supported), "on"
-    always, raising ValueError out of scope."""
+def state_kernel_pack(cfg: SimConfig, params: EnvParams):
+    """Resolution of cfg.state_kernel for a step: the state kernel's scalar
+    pack (state_kernels.step_pack, cached while the params do not change)
+    where the kernel runs, None where the eager chain runs.  "off" never,
+    "auto" iff the config and params are in the kernel's scope
+    (state_kernels.supported), "on" always, raising ValueError out of
+    scope."""
     if cfg.state_kernel == "off":
-        return False
-    if state_kernels.supported(cfg, params):
-        return True
-    if cfg.state_kernel == "on":
+        return None
+    pack = state_kernels.step_pack(cfg, params)
+    if pack is None and cfg.state_kernel == "on":
         raise ValueError(
             "state_kernel='on' needs the kernel's scope: scan_mode='fast', "
             "rt_spatial='nearest1', dtype='float32', steer_delay=2, the "
             "default PID, the megakernel resolving on and scalar vehicle "
             "params (state_kernels.supported)")
-    return False
+    return pack
 
 
 def _noise_rows(cfg: SimConfig, params: EnvParams, e_n: int, gen):
@@ -201,11 +203,12 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     actions = torch.as_tensor(actions, dtype=cfg.tdtype)
 
     pregeo = None
-    if use_state_kernel(cfg, params):
+    pack = state_kernel_pack(cfg, params)
+    if pack is not None:
         # one launch for steer delay, PID, integration, yaw wrap and the
-        # megakernel's per-row operands; its scalar pack is built from these
-        # params at every step (JAX: pallas_state.pack_rows in sim_step)
-        pack = state_kernels.pack_params(p, params.tmap, params.rtex)
+        # megakernel's per-row operands; its scalar pack is that of these
+        # params, rebuilt whenever one of them changed (JAX:
+        # pallas_state.pack_rows in sim_step)
         x, steer_buf, steer_cnt, rows, scal = state_kernels.prestep(
             cfg, params, state.x, state.steer_buf, state.steer_cnt, actions, pack)
         pregeo = (rows, scal)

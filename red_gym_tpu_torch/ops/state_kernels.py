@@ -23,20 +23,23 @@ The plain version, :func:`prestep_reference`, is the eager chain that
 then ``scan_fast.row_scalars``), so the two paths share one formula.
 
 What bounds it on an H100: at K = 32768 rows it reads and writes about
-100 bytes per row (3.3 MB) and does a few hundred float operations per row,
-a few microseconds of work.  The eager chain it replaces issues one small
-kernel per tensor operation, well over a hundred per step, each a launch
-and a full pass over (E, A) tensors, so the kernel's gain is launches and
-host time, not device bandwidth.  Its design: one thread per row, with no
-fields-on-sublanes transpose (that layout exists for the TPU's lanes).  The
-vehicle and geometry scalars come from one small float32 device buffer
-(:func:`pack_params`) that ``env.sim_step`` builds from the params at every
-step, as the JAX package's ``pack_rows`` does, so replaced params take
-effect and no step waits on the host.  The source is compiled without
-FMA contraction, and every operation is written in the order and rounding
-of the PyTorch chain (IEEE division where PyTorch divides tensor by tensor,
-``x * x`` for ``** 2``, round-half-even cells), so the kernel and its plain
-version agree bit for bit on the card.
+100 bytes per row (3.3 MB), a microsecond at the memory rate, but each row
+is a serial chain of four right-hand sides of accurate transcendentals and
+IEEE divisions, so one thread a row leaves too few warps to hide its
+latency.  The kernel splits each right-hand side into tasks that two warps
+share (``csrc/prestep.cu``).  The eager chain it replaces issues one small
+kernel per tensor operation, well over a hundred per step, so on a path
+the gain is launches and host time as much as device time; on the host,
+the wrapper is what a step pays for it.  The vehicle and geometry scalars
+come from one small float32 device buffer (:func:`pack_params`), built
+from the params of the step as the JAX package's ``pack_rows`` is;
+:func:`step_pack` builds it again only when one of those params changed,
+so a step on unchanged params issues no device op and waits on nothing
+for it.  The source is compiled without FMA contraction, and every
+operation is written in the order and rounding of the PyTorch chain (IEEE
+division where PyTorch divides tensor by tensor, ``x * x`` for ``** 2``,
+round-half-even cells), so the kernel and its plain version agree bit for
+bit on the card.
 """
 
 from __future__ import annotations
@@ -103,8 +106,8 @@ def pack_params(vehicle: VehicleParams, tmap, rtex):
     the 18 vehicle fields in VehicleParams order, then orig_x, orig_y,
     orig_c, orig_s, cell, hc, wc, zeros.  None when a vehicle field is not
     a scalar (the kernel's scope).  Reads the tensors as they are now, on
-    the device: a few small device ops and no host wait, so the step builds
-    it anew every time."""
+    the device: a few small device ops and no host wait.  A step takes it
+    through :func:`step_pack`, which builds it again when they change."""
     if rtex is None or any(getattr(vehicle, f).dim() != 0
                            for f in VehicleParams._fields):
         return None
@@ -128,6 +131,51 @@ def prestep_reference(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions):
     return x, steer_buf, steer_cnt, rows, scal
 
 
+def _sources(params) -> tuple:
+    """The 25 tensors :func:`pack_params` reads, in its order."""
+    tmap, rtex = params.tmap, params.rtex
+    return (*params.vehicle, *(getattr(tmap, f) for f in _GEO_FIELDS),
+            rtex.cell, rtex.hc, rtex.wc)
+
+
+# step_pack's one entry, replaced whole and read once: the cfg, the source
+# tensors the pack was computed from (held, so that no id is reused), their
+# versions, and the pack
+_STEP_PACK = (None, (), (), None)
+
+
+def step_pack(cfg: SimConfig, params):
+    """The pack of a step of ``cfg`` on ``params``: ``pack_params`` of the
+    params as they are now where :func:`supported` holds, else None.
+
+    A one-entry cache computes both again only when ``cfg``, one of the 25
+    tensors the pack reads (:func:`_sources`) or one's ``_version``
+    changed: a replaced field is another tensor, an in-place edit bumps
+    the version.  So a step whose params did not change issues no device
+    op and reads no vehicle field's shape for it, and a step whose params
+    did change gets their pack (fault C1).  Inference tensors keep no
+    version counter, so params made under ``torch.inference_mode()`` get
+    their pack built at every step and are not cached."""
+    global _STEP_PACK
+    rtex = params.rtex
+    if rtex is None or rtex.rt.dim() != 2:
+        return None
+    sources = _sources(params)
+    try:
+        versions = tuple(t._version for t in sources)
+    except RuntimeError:  # an inference tensor
+        return (pack_params(params.vehicle, params.tmap, rtex)
+                if supported(cfg, params) else None)
+    c_cfg, c_sources, c_versions, c_pack = _STEP_PACK
+    if (cfg is c_cfg and versions == c_versions
+            and all(a is b for a, b in zip(sources, c_sources))):
+        return c_pack
+    pack = (pack_params(params.vehicle, params.tmap, rtex)
+            if supported(cfg, params) else None)
+    _STEP_PACK = (cfg, sources, versions, pack)
+    return pack
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("prestep")
@@ -135,6 +183,8 @@ def _lib():
     lib.prestep_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, i, f, f, f,
                                    i, i, p]
     lib.prestep_launch.restype = ctypes.c_int
+    lib.prestep_floor_launch.argtypes = [i, p]
+    lib.prestep_floor_launch.restype = ctypes.c_int
     return lib
 
 
@@ -143,11 +193,12 @@ def prestep(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions, pack):
 
     x (..., 7), steer_buf (..., 2), steer_cnt (...) int32, actions (..., 2);
     ``params`` is an ``env.EnvParams`` and ``pack`` its
-    ``pack_params(params.vehicle, params.tmap, params.rtex)``, built from
-    the params of this call: the kernel reads its scalars from the pack,
-    the twin from the params.  On CUDA tensors it launches the kernel or
-    raises, never a fallback; callers check :func:`supported` first.
-    ``prestep.launches`` counts kernel launches."""
+    ``pack_params(params.vehicle, params.tmap, params.rtex)`` (or
+    :func:`step_pack`), built from the params of this call: the kernel
+    reads its scalars from the pack, the twin from the params.  On CUDA
+    tensors it launches the kernel or raises, never a fallback; callers
+    check :func:`supported` first.  ``prestep.launches`` counts kernel
+    launches."""
     lead = tuple(x.shape[:-1])
     if (x.shape[-1] != 7 or steer_buf.shape != lead + (2,)
             or steer_cnt.shape != lead or actions.shape != lead + (2,)):
@@ -170,7 +221,8 @@ def prestep(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions, pack):
             raise ValueError(f"{name} must be float32 on CUDA, got {v.dtype}")
     if steer_cnt.dtype != torch.int32:
         raise ValueError(f"steer_cnt must be int32, got {steer_cnt.dtype}")
-    if pack is None or pack.shape != (PACK_LEN,) or pack.device != device:
+    if (pack is None or pack.shape != (PACK_LEN,) or pack.dtype != torch.float32
+            or pack.device != device):
         raise ValueError("pack must be state_kernels.pack_params of these "
                          "params, on the same device")
     if cfg.integrator not in (Integrator.RK4, Integrator.EULER):
@@ -178,7 +230,8 @@ def prestep(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions, pack):
 
     k_n = math.prod(lead)
     x, steer_buf, steer_cnt, actions = (
-        v.contiguous() for v in (x, steer_buf, steer_cnt, actions))
+        v if v.is_contiguous() else v.contiguous()
+        for v in (x, steer_buf, steer_cnt, actions))
     x_out = torch.empty_like(x)
     buf_out = torch.empty_like(steer_buf)
     cnt_out = torch.empty_like(steer_cnt)
@@ -193,7 +246,7 @@ def prestep(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions, pack):
         buf_out.data_ptr(), cnt_out.data_ptr(), rows.data_ptr(),
         scal.data_ptr(), k_n, dt / 2, dt, dt * (1.0 / 6.0),
         int(cfg.integrator is Integrator.RK4), cfg.rt_theta_bins,
-        torch.cuda.current_stream(device).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"prestep kernel launch failed: CUDA error {err}")
     prestep.launches += 1
@@ -201,3 +254,13 @@ def prestep(cfg: SimConfig, params, x, steer_buf, steer_cnt, actions, pack):
 
 
 prestep.launches = 0
+
+
+def launch_floor(k_n: int, device) -> None:
+    """Launch an empty kernel with the grid and block that
+    :func:`prestep` launches for ``k_n`` rows: the least time a launch of
+    that shape takes on the card, for timing (chip_smoke.py).  Not
+    counted in ``prestep.launches``."""
+    err = _lib().prestep_floor_launch(k_n, torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"prestep floor launch failed: CUDA error {err}")

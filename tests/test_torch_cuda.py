@@ -117,48 +117,104 @@ def test_mega_variants_match_plain_twin(gpu_params, agents, variant):
         assert (out < base - 1e-6).any(), "fixture guard: no beam shortened"
 
 
-@pytest.mark.parametrize("integrator", [Integrator.RK4, Integrator.EULER])
-def test_prestep_matches_plain_twin(gpu_params, integrator):
-    """1001 x 2 random in-range cars: integer outputs exactly equal, float
-    outputs within 1e-6."""
-    cfg, params = gpu_params
-    cfg = dataclasses.replace(cfg, integrator=integrator)
-    gen = torch.Generator(device=params.rtex.rt.device).manual_seed(4)
-    args = random_states(params, (1001, 2), gen)
-    pack = state_kernels.pack_params(params.vehicle, params.tmap, params.rtex)
+def _prestep_bit_equal(cfg, params, args, pack=None):
+    """The state kernel's five outputs torch.equal to its twin's."""
+    pack = pack if pack is not None else state_kernels.pack_params(
+        params.vehicle, params.tmap, params.rtex)
     before = state_kernels.prestep.launches
     got = state_kernels.prestep(cfg, params, *args, pack)
     assert state_kernels.prestep.launches == before + 1
     want = state_kernels.prestep_reference(cfg, params, *args)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and g.dtype == w.dtype
-    for g, w in ((got[2], want[2]), (got[3], want[3]),
-                 (got[4][..., 3:5], want[4][..., 3:5])):
-        assert torch.equal(g, w)
-    for g, w in zip(got, want):
-        assert float((g.float() - w.float()).abs().max()) <= 1e-6
+    for name, g, w in zip(("x", "steer_buf", "steer_cnt", "rows", "scal"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(g, w), (name, float((g.float() - w.float()).abs().max()))
+    return got
+
+
+@pytest.mark.parametrize("integrator", [Integrator.RK4, Integrator.EULER])
+def test_prestep_matches_plain_twin(gpu_params, integrator):
+    """1001 x 2 random in-range cars: all five outputs bit-equal."""
+    cfg, params = gpu_params
+    cfg = dataclasses.replace(cfg, integrator=integrator)
+    gen = torch.Generator(device=params.rtex.rt.device).manual_seed(4)
+    _prestep_bit_equal(cfg, params, random_states(params, (1001, 2), gen))
+
+
+# The state kernel deals 32 rows, a row a lane, to the warps of one block:
+# row counts around one and two blocks, a ragged last block, and the main
+# path's 16384 x 2.
+PRESTEP_ROWS = 32
+PRESTEP_KS = (1, PRESTEP_ROWS - 1, PRESTEP_ROWS, PRESTEP_ROWS + 1, 2 * PRESTEP_ROWS - 1,
+              2 * PRESTEP_ROWS, 2 * PRESTEP_ROWS + 1, 3 * PRESTEP_ROWS + 1, 16384 * 2)
+
+
+@pytest.mark.parametrize("integrator", [Integrator.RK4, Integrator.EULER])
+@pytest.mark.parametrize("k_n", PRESTEP_KS)
+def test_prestep_block_edges_bit_equal(gpu_params, k_n, integrator):
+    cfg, params = gpu_params
+    cfg = dataclasses.replace(cfg, integrator=integrator)
+    gen = torch.Generator(device=params.rtex.rt.device).manual_seed(k_n)
+    shape = (k_n // 2, 2) if k_n % 2 == 0 else (k_n, 1)
+    _prestep_bit_equal(cfg, params, random_states(params, shape, gen))
+
+
+@pytest.mark.parametrize("integrator", [Integrator.RK4, Integrator.EULER])
+def test_prestep_branches_within_a_warp(gpu_params, integrator):
+    """Rows of one warp on both sides of |v| = 0.5 (the kinematic and the
+    dynamic branch), at exactly +-0.5, at 0, and just below 0.5 with the
+    speed command far above, so that a row changes branch between the RK4
+    stages; beside them warps of one branch only.  Bit-equal."""
+    cfg, params = gpu_params
+    cfg = dataclasses.replace(cfg, integrator=integrator)
+    dev = params.rtex.rt.device
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k_n = 8 * PRESTEP_ROWS
+    x, buf, cnt, act = (v.clone() for v in random_states(params, (k_n, 1), gen))
+    lane = torch.arange(k_n, device=dev) % PRESTEP_ROWS
+    warp = torch.arange(k_n, device=dev) // PRESTEP_ROWS
+    near = torch.tensor([0.4999, -0.4999, 0.0, 0.25, 0.5, -0.5, 0.5001, 3.0], device=dev)
+    vel = near[(lane % 2) * 4 + (lane // 2) % 4]
+    vel = torch.where(warp == 0, 0.98 * torch.rand(k_n, generator=gen, device=dev) - 0.49, vel)
+    vel = torch.where(warp == 1, 0.6 + 7 * torch.rand(k_n, generator=gen, device=dev), vel)
+    x[:, 0, 3] = vel
+    act[:, 0, 1] = torch.where(lane % 3 == 0, 10.0, act[:, 0, 1])
+    got = _prestep_bit_equal(cfg, params, (x, buf, cnt, act))
+    ks = (vel.abs() < 0.5).reshape(-1, PRESTEP_ROWS)
+    assert ks[0].all() and not ks[1].any() and bool((ks.any(1) & ~ks.all(1)).any()), \
+        "fixture guard: warps of each kind"
+    crossed = (vel.abs() < 0.5) != (got[0][:, 0, 3].abs() < 0.5)
+    assert crossed.any(), "fixture guard: no row changed branch within the step"
+
+
+def test_prestep_takes_strided_inputs(gpu_params):
+    """Views that are not contiguous (a slice of wider rows, a transpose)
+    give the outputs of their contiguous copies."""
+    cfg, params = gpu_params
+    gen = torch.Generator(device=params.rtex.rt.device).manual_seed(5)
+    x, buf, cnt, act = random_states(params, (2, 300), gen)
+    wide = torch.cat([x, x[..., :3]], dim=-1)[..., :7]
+    views = (wide.transpose(0, 1), buf.transpose(0, 1), cnt.t(), act.transpose(0, 1))
+    assert not any(v.is_contiguous() for v in views)
+    got = _prestep_bit_equal(cfg, params, views)
+    want = state_kernels.prestep(cfg, params, *(v.contiguous() for v in views),
+                                 state_kernels.pack_params(params.vehicle, params.tmap,
+                                                           params.rtex))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_prestep_reads_replaced_params(gpu_params):
     """Fault C1 on the card: after vehicle.replace(mu=1.1) the kernel, fed
-    the pack of the replaced params, meets the twin's bar on those params
-    (integers exact, floats within 1e-6), and mu moves the result."""
+    the pack of the replaced params, equals the twin on those params bit
+    for bit, and mu moves the result."""
     cfg, params = gpu_params
     new = params._replace(vehicle=params.vehicle.replace(mu=1.1))
     gen = torch.Generator(device=params.rtex.rt.device).manual_seed(12)
     args = random_states(params, (1001, 2), gen)
-    got = state_kernels.prestep(cfg, new, *args,
-                                state_kernels.pack_params(new.vehicle, new.tmap, new.rtex))
-    want = state_kernels.prestep_reference(cfg, new, *args)
+    got = _prestep_bit_equal(cfg, new, args,
+                             state_kernels.pack_params(new.vehicle, new.tmap, new.rtex))
     old = state_kernels.prestep_reference(cfg, params, *args)
-    torch.cuda.synchronize()
-    for g, w in ((got[2], want[2]), (got[3], want[3]),
-                 (got[4][..., 3:5], want[4][..., 3:5])):
-        assert torch.equal(g, w)
-    for g, w in zip(got, want):
-        assert float((g.float() - w.float()).abs().max()) <= 1e-6
-    assert float((want[0] - old[0]).abs().max()) > 1e-4, "fixture guard: mu moved nothing"
+    assert float((got[0] - old[0]).abs().max()) > 1e-4, "fixture guard: mu moved nothing"
 
 
 def test_kernel_rejects_what_it_cannot_take(gpu_params):

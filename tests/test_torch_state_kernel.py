@@ -146,7 +146,7 @@ def test_state_kernel_scope(port_params):
     """"on" outside the kernel's scope raises ValueError; "auto" there runs
     the eager chain; the dispatcher on CPU tensors is the twin."""
     cfg, params = port_params
-    assert tenv.use_state_kernel(cfg, params)
+    assert tenv.state_kernel_pack(cfg, params) is not None
     poses = torch.as_tensor(assets.waypoint_start_poses(TRACK, A)[None],
                             dtype=torch.float32)
     gen = torch.Generator()
@@ -154,7 +154,7 @@ def test_state_kernel_scope(port_params):
         with pytest.raises(ValueError, match="state_kernel='on'"):
             tenv.reset(dataclasses.replace(cfg, state_kernel="on", **kw), params,
                        poses, gen)
-        assert not tenv.use_state_kernel(dataclasses.replace(cfg, **kw), params)
+        assert tenv.state_kernel_pack(dataclasses.replace(cfg, **kw), params) is None
     per_agent = params._replace(vehicle=params.vehicle.replace(mu=[1.0, 1.1]))
     assert not state_kernels.supported(cfg, per_agent)
     assert state_kernels.pack_params(per_agent.vehicle, params.tmap, params.rtex) is None
@@ -180,10 +180,11 @@ def test_state_kernel_needs_the_megakernel(port_params, kw):
     cfg, params = port_params
     off = dataclasses.replace(cfg, **kw)
     assert not state_kernels.supported(off, params)
-    assert not tenv.use_state_kernel(off, params)
+    assert tenv.state_kernel_pack(off, params) is None
     with pytest.raises(ValueError, match="megakernel resolving on"):
-        tenv.use_state_kernel(dataclasses.replace(off, state_kernel="on"), params)
-    assert tenv.use_state_kernel(dataclasses.replace(cfg, state_kernel="on"), params)
+        tenv.state_kernel_pack(dataclasses.replace(off, state_kernel="on"), params)
+    on = dataclasses.replace(cfg, state_kernel="on")
+    assert tenv.state_kernel_pack(on, params) is not None
 
 
 def test_pack_params_layout(port_params):
@@ -225,3 +226,110 @@ def test_step_packs_the_params_it_is_given(port_params, monkeypatch):
     assert float(handed[1][0]) == float(torch.tensor(1.1))
     assert float(handed[1][18]) == float(new.tmap.orig_x) != float(old_pk[18])
 
+
+
+def _spy_packs(monkeypatch) -> list:
+    """Record the pack that every state_kernels.prestep call is handed."""
+    handed = []
+    prestep = state_kernels.prestep
+
+    def spy(*args):
+        handed.append(args[-1])
+        return prestep(*args)
+
+    monkeypatch.setattr(state_kernels, "prestep", spy)
+    return handed
+
+
+def _own_params(params):
+    """params with vehicle tensors of their own, free to edit in place."""
+    return params._replace(vehicle=params.vehicle._replace(
+        **{f: getattr(params.vehicle, f).clone() for f in params.vehicle._fields}))
+
+
+@pytest.mark.parametrize("change", ["in_place", "replace"])
+def test_step_pack_follows_changed_params(port_params, monkeypatch, change):
+    """Fault C1 under the pack cache (state_kernels.step_pack): after an
+    in-place edit of a vehicle field (mu.fill_) or a replaced one (mu and
+    the map's orig_x), the pack env.step hands to prestep equals a fresh
+    pack_params of the params of that step, not the cached pack."""
+    cfg, params = port_params
+    own = _own_params(params)
+    handed = _spy_packs(monkeypatch)
+    poses = torch.as_tensor(assets.waypoint_start_poses(TRACK, A)[None],
+                            dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    act = torch.zeros((1, A, 2))
+    state, *_ = tenv.reset(cfg, own, poses, gen)
+    old_pk = handed[-1].clone()
+    if change == "in_place":
+        own.vehicle.mu.fill_(1.1)
+    else:
+        own = own._replace(vehicle=own.vehicle.replace(mu=1.1),
+                           tmap=own.tmap._replace(orig_x=own.tmap.orig_x + 0.25))
+    tenv.step(cfg, own, state, act, gen)
+    fresh = state_kernels.pack_params(own.vehicle, own.tmap, own.rtex)
+    assert torch.equal(handed[-1], fresh)
+    assert float(handed[-1][0]) == float(torch.tensor(1.1)) != float(old_pk[0])
+    if change == "replace":
+        assert float(handed[-1][18]) == float(own.tmap.orig_x) != float(old_pk[18])
+
+
+def test_unchanged_step_reuses_the_cached_pack(port_params, monkeypatch):
+    """Steps on params that did not change get the same pack tensor (no
+    device op builds it again), whether the EnvParams object is the same
+    or a new one around the same tensors; another cfg in scope gets a pack
+    of the same values, and one out of scope none."""
+    cfg, params = port_params
+    own = _own_params(params)
+    handed = _spy_packs(monkeypatch)
+    poses = torch.as_tensor(assets.waypoint_start_poses(TRACK, A)[None],
+                            dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    act = torch.zeros((1, A, 2))
+    state, *_ = tenv.reset(cfg, own, poses, gen)
+    state, *_ = tenv.step(cfg, own, state, act, gen)
+    tenv.step(cfg, own._replace(noise_pool=own.noise_pool), state, act, gen)
+    assert len(handed) == 3
+    assert handed[1] is handed[0] and handed[2] is handed[0]
+    assert torch.equal(handed[0], state_kernels.pack_params(own.vehicle, own.tmap, own.rtex))
+    euler = dataclasses.replace(cfg, integrator=Integrator.EULER)
+    assert torch.equal(state_kernels.step_pack(euler, own), handed[0])
+    assert state_kernels.step_pack(dataclasses.replace(cfg, steer_delay=3), own) is None
+    assert state_kernels.step_pack(cfg, own) is not None
+
+
+def _inference_copy(v):
+    """v with every tensor of its named-tuple tree cloned; under
+    torch.inference_mode() the clones are inference tensors."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple) and hasattr(v, "_fields"):
+        return type(v)(*(_inference_copy(f) for f in v))
+    return v
+
+
+def test_step_takes_params_made_under_inference_mode(port_params, monkeypatch):
+    """Params made under torch.inference_mode(), as rollouts often make
+    them, keep no version counter: env.step runs on them, and after an
+    in-place edit (mu.fill_, allowed in inference mode) the pack it hands
+    to prestep equals a fresh pack_params of the edited params."""
+    cfg, params = port_params
+    handed = _spy_packs(monkeypatch)
+    poses = torch.as_tensor(assets.waypoint_start_poses(TRACK, A)[None],
+                            dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    with torch.inference_mode():
+        inf = _inference_copy(params)
+        act = torch.zeros((1, A, 2))
+        state, *_ = tenv.reset(cfg, inf, poses, gen)
+        state, *_ = tenv.step(cfg, inf, state, act, gen)
+        assert torch.equal(handed[-1], state_kernels.pack_params(params.vehicle, params.tmap,
+                                                                 params.rtex))
+        inf.vehicle.mu.fill_(1.1)
+        tenv.step(cfg, inf, state, act, gen)
+        fresh = state_kernels.pack_params(inf.vehicle, inf.tmap, inf.rtex)
+    assert inf.vehicle.mu.is_inference() and inf.rtex.cell.is_inference()
+    assert len(handed) == 3
+    assert torch.equal(handed[-1], fresh)
+    assert float(handed[-1][0]) == float(torch.tensor(1.1))
