@@ -14,7 +14,10 @@ line:
    parallel);
 3. env.make_params on track_0019 at the library-default texture stride 2:
    the range texture is marched on the card, and so is the 1-channel
-   texture that the legacy and ultra configs read;
+   texture that the legacy and ultra configs read; the default texture
+   again, stored in float32, with its rays marched by the march kernel and
+   then by its twin (the disk cache off): rt and valid torch.equal, both
+   build times;
 4. kernel phases at K = 16384 envs x 2 agents, each kernel against its
    plain PyTorch twin on the card, with median CUDA-event times of both
    (``median_ms``: R calls back to back between one pair of events, R = 10
@@ -24,6 +27,14 @@ line:
    duration of its device kernels under torch.profiler over 60 launches,
    without the wrapper's host time) and its registers and spill bytes from
    its ptxas report:
+   - march (csrc/march.cu, the exact scan's sphere march; it replaces the
+     JAX package's lax.while_loop, no TPU kernel), beams form, on random
+     free poses of the map, float32: every range torch.equal to the twin,
+     and so with march_iters=40 and in float64 on 1024 envs x 2 agents;
+     the iterations a ray (mean, p99, max) from an eager replay of the
+     twin's march body, whose ranges must equal the kernel's too; its bound
+     counts the kernel's operations a counted iteration at the float32
+     rate against its bytes;
    - mega_edge_ttc, plain, on operands made by the main path's own prep
      from random free poses; the call launches the spectra kernel and the
      render kernel, and each is also timed alone (``spectra_ms``,
@@ -75,11 +86,16 @@ line:
      occlusion off, no grad channels, on the legacy texture): the prep
      chain with the real-valued roll, kernel 5, the eager opponent pass;
    - ultra_ttc_off: the plain spectral render (torch.matmul), then the
-     eager noise add, iTTC check and opponent pass; no kernel.
+     eager noise add, iTTC check and opponent pass; no kernel;
+   - exact (scan_mode="exact", SimConfig's default; no texture): the eager
+     pre-scan chain, the march kernel's beams form, the eager noise add,
+     iTTC check and opponent pass; if a warm-up step takes more than 50 ms
+     it times proportionally fewer steps, at least 20, and says so.
 
 ``--profile`` adds torch.profiler summaries (device kernels and device
-busy time per step) of the default, eager, bilinear and ultra paths, and
-tables of the default, bilinear and ultra paths' kernels by device time.
+busy time per step) of the default, eager, bilinear, ultra and exact
+paths, and tables of the default, bilinear, ultra and exact paths' kernels
+by device time.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
@@ -114,6 +130,16 @@ F32_FLOPS, BF16_FLOPS, F64_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 67e12, 3.35e1
 # single-track evaluations of RK4, cell lookup): even so they take less
 # time than its bytes, so bytes bound it
 PRESTEP_OPS_PER_ROW = 1000
+# the march kernel's (csrc/march.cu) operations, from the source, counted at
+# the float32 rate outside the tensor cores: a ray-iteration of march_ray is the end
+# test (2 compares), the step (2 multiplies, 2 adds), dt_lookup (2
+# subtractions, a negation, 4 multiplies, 2 adds, 4 compares, 2 divisions,
+# 2 float-to-int casts) and the running total (1 add); theta_index is 12
+# (subtract, multiply, two floored remainders of 3, the offset's multiply,
+# add and 2 casts)
+MARCH_OPS_PER_ITER, THETA_INDEX_OPS = 24, 12
+MARCH_STEP_MS = 50.0     # the exact path times fewer steps above this a step
+MARCH_F64_ENVS = 1024
 
 
 def fail(msg: str) -> None:
@@ -245,6 +271,23 @@ def random_free_poses(params, n: int, gen):
     u = torch.rand((n, 3), generator=gen, device=dev, dtype=dt)
     x_rot = ((pick % wc).to(dt) + u[:, 0]) * cell
     y_rot = ((pick // wc).to(dt) + u[:, 1]) * cell
+    x = x_rot * tmap.orig_c - y_rot * tmap.orig_s + tmap.orig_x
+    y = x_rot * tmap.orig_s + y_rot * tmap.orig_c + tmap.orig_y
+    return torch.stack([x, y, 2 * torch.pi * u[:, 2]], dim=-1)
+
+
+def map_free_poses(tmap, n: int, gen):
+    """(n, 3) poses of tmap's dtype: uniform inside random map cells with
+    more than 0.2 m to the nearest obstacle, random heading."""
+    import torch
+
+    dev, dt = tmap.dt.device, tmap.dt.dtype
+    free = torch.nonzero(tmap.dt.reshape(-1) > 0.2).squeeze(1)
+    pick = free[torch.randint(0, free.numel(), (n,), generator=gen, device=dev)]
+    w = tmap.dt.shape[1]
+    u = torch.rand((n, 3), generator=gen, device=dev, dtype=dt)
+    x_rot = ((pick % w).to(dt) + u[:, 0]) * tmap.resolution
+    y_rot = ((pick // w).to(dt) + u[:, 1]) * tmap.resolution
     x = x_rot * tmap.orig_c - y_rot * tmap.orig_s + tmap.orig_x
     y = x_rot * tmap.orig_s + y_rot * tmap.orig_c + tmap.orig_y
     return torch.stack([x, y, 2 * torch.pi * u[:, 2]], dim=-1)
@@ -387,6 +430,7 @@ KERNEL_FUNCTIONS = {
     "theta_shuffle_blend_edge": ("theta_blend", "theta_blend_kernel<0, float>"),
     "theta_shuffle_blend": ("theta_blend", "theta_shuffle_blend_kernel<true>"),
     "theta_spectral_ttc": ("theta_spectral", "theta_spectral_kernel<__nv_bfloat16, true>"),
+    "march": ("march", "march_beams_kernel<float>"),
 }
 
 
@@ -716,21 +760,170 @@ def prestep_phase(cfg, params, dev, reports) -> dict:
     return {"max_abs_err": max_err, **rec, "floor_ms": floor_ms, "host_us": wrapper_us}
 
 
+def march_iterations(poses, tables, tmap, cfg):
+    """Iterations of every ray of the march's beams form at poses (..., 3),
+    counted by an eager replay of the twin's march body
+    (``march_kernels._march_body``), the rays still running compacted every
+    iteration -> (iterations (...) int32 flat, ranges (..., B))."""
+    import torch
+
+    from red_gym_tpu_torch.ops import march_kernels as mk
+
+    idx = mk.beam_theta_indices(poses[..., 2], cfg)
+    shape = idx.shape
+    x = torch.broadcast_to(poses[..., 0:1], shape).reshape(-1)
+    y = torch.broadcast_to(poses[..., 1:2], shape).reshape(-1)
+    c, s = tables.cosines[idx].reshape(-1), tables.sines[idx].reshape(-1)
+    d = mk.dt_lookup(x, y, tmap)
+    total = d.clone()
+    out = total.clone()
+    n_it = torch.zeros(x.numel(), dtype=torch.int32, device=x.device)
+    live = torch.arange(x.numel(), device=x.device)
+    while True:
+        act = (d > cfg.eps) & (total <= cfg.max_range)
+        keep = torch.nonzero(act).squeeze(1)
+        out[live] = total
+        if keep.numel() == 0:
+            break
+        live = live[keep]
+        x, y, c, s, d, total = (v[keep] for v in (x, y, c, s, d, total))
+        n_it[live] += 1
+        x, y, d, total = mk._march_body(x, y, c, s, d, total, tmap, cfg.eps, cfg.max_range)
+    return n_it, torch.clamp(out, max=cfg.max_range).reshape(shape)
+
+
+def march_bound(out, tmap, tables, poses, iterations: int, rays: int) -> dict:
+    """The float32 march's bound: its operations (MARCH_OPS_PER_ITER a
+    counted iteration and the first lookup of each ray, THETA_INDEX_OPS a
+    ray) against its bytes (the (K, B) output written once, the distance
+    transform, poses and theta tables read once)."""
+    ops = MARCH_OPS_PER_ITER * (iterations + rays) + THETA_INDEX_OPS * rays
+    return bound(nbytes(out, tmap.dt, poses, tables.cosines, tables.sines), f32=float(ops))
+
+
+def march_phase(cfg, params, dev, reports) -> dict:
+    """The march kernel's beams form against its twin at full width:
+    ENVS x AGENTS cars at random free poses on the map, BEAMS beams,
+    float32, every range ``torch.equal``; the same in float64 on
+    MARCH_F64_ENVS envs and with march_iters=40; iterations per ray from
+    the eager replay; times and bound."""
+    import torch
+
+    from red_gym_tpu_torch import assets
+    from red_gym_tpu_torch.maps.loader import load_map
+    from red_gym_tpu_torch.ops import march_kernels as mk, scan
+
+    tmap, tables = params.tmap, params.tables
+    gen = torch.Generator(device=dev).manual_seed(9)
+    poses = map_free_poses(tmap, ENVS * AGENTS, gen).reshape(ENVS, AGENTS, 3)
+
+    def kernel():
+        return mk.march_beams(poses, tables.cosines, tables.sines, tmap, cfg)
+
+    def twin():
+        return mk.march_beams_reference(poses, tables.cosines, tables.sines, tmap, cfg)
+
+    out_k, out_r = kernel(), twin()
+    n_it, out_e = march_iterations(poses, tables, tmap, cfg)
+    torch.cuda.synchronize()
+    rays = n_it.numel()
+    srt = n_it.sort().values
+    # a warp of the kernel holds 32 neighbouring rays and runs as long as its
+    # longest: the mean over warps of that longest, against the mean ray
+    warp_max = torch.nn.functional.pad(n_it, (0, -rays % 32)).reshape(-1, 32).amax(dim=1)
+    its = {"mean": float(n_it.float().mean()), "p99": int(srt[int(0.99 * (rays - 1))]),
+           "max": int(srt[-1]), "warp_max_mean": float(warp_max.float().mean())}
+    checks = {"float32": torch.equal(out_k, out_r), "replay": torch.equal(out_k, out_e)}
+    say("kernel", f"march: {ENVS} x {AGENTS} cars x {cfg.num_beams} beams = {rays} rays, "
+        f"float32: kernel torch.equal to its twin {checks['float32']} and to the counted "
+        f"replay {checks['replay']}; iterations a ray mean {its['mean']:.2f}, p99 "
+        f"{its['p99']}, max {its['max']}, longest of a warp's 32 mean "
+        f"{its['warp_max_mean']:.2f}; ranges in [{float(out_k.min()):.3f}, "
+        f"{float(out_k.max()):.3f}] m")
+
+    it_cfg = dataclasses.replace(cfg, march_iters=40)
+    got = mk.march_beams(poses, tables.cosines, tables.sines, tmap, it_cfg)
+    checks["march_iters=40"] = torch.equal(
+        got, mk.march_beams_reference(poses, tables.cosines, tables.sines, tmap, it_cfg))
+    c64 = dataclasses.replace(cfg, dtype="float64")
+    t64 = load_map(assets.named_map_yaml(TRACK), dtype=torch.float64, device=dev)
+    tab64 = scan.build_tables(c64, 0.31, 0.58, device=dev)
+    p64 = map_free_poses(t64, MARCH_F64_ENVS * AGENTS, gen).reshape(MARCH_F64_ENVS, AGENTS, 3)
+    got = mk.march_beams(p64, tab64.cosines, tab64.sines, t64, c64)
+    checks["float64"] = torch.equal(
+        got, mk.march_beams_reference(p64, tab64.cosines, tab64.sines, t64, c64))
+    torch.cuda.synchronize()
+    say("kernel", f"march: torch.equal to the twin with march_iters=40 "
+        f"{checks['march_iters=40']}; float64 at {MARCH_F64_ENVS} x {AGENTS} cars "
+        f"{checks['float64']}")
+    if not all(checks.values()):
+        fail(f"march: kernel not bit-equal to its twin: {checks}")
+    if float(out_k.mean()) < 0.5:
+        fail("march: mean range under 0.5 m: degenerate poses")
+
+    lims = march_bound(out_k, tmap, tables, poses, int(n_it.sum(dtype=torch.int64)), rays)
+    say("kernel", f"march: bound from {int(n_it.sum(dtype=torch.int64))} counted "
+        f"iterations x {MARCH_OPS_PER_ITER} operations and {rays} rays x "
+        f"({MARCH_OPS_PER_ITER} + {THETA_INDEX_OPS}) at {F32_FLOPS / 1e12:.0f} TFLOP/s, "
+        f"against {nbytes(out_k, tmap.dt, poses, tables.cosines, tables.sines) / 1e6:.1f} MB")
+    rec = timed("march", kernel, twin, lims, resources(reports, "march"),
+                ("march_beams_kernel",))
+    return {"max_abs_err": float((out_k - out_r).abs().max()), **rec,
+            "iterations": its}
+
+
+def texture_phase(cfg, tmap) -> None:
+    """The library-default texture of ``cfg`` (stored in float32 here)
+    built twice with the disk cache off: its rays marched by the kernel,
+    then by the twin; rt and valid must be torch.equal."""
+    import torch
+
+    from red_gym_tpu_torch.ops import march_kernels as mk, scan_fast
+
+    cfg = dataclasses.replace(cfg, rt_dtype="float32")
+    seconds, tex, launches = {}, {}, {}
+    kernel = mk.march
+    for who, fn in (("kernel", kernel), ("twin", mk.march_reference)):
+        mk.reset_launches()
+        mk.march = fn   # what scan.march calls for every ray batch of the build
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tex[who] = scan_fast.build_range_texture(tmap, cfg)
+            torch.cuda.synchronize()
+            seconds[who] = time.perf_counter() - t0
+        finally:
+            mk.march = kernel
+        launches[who] = kernel.launches
+    if launches["kernel"] == 0 or launches["twin"] != 0:
+        fail(f"texture: march kernel launches in the two builds: {launches}")
+    same = {f: torch.equal(getattr(tex["kernel"], f), getattr(tex["twin"], f))
+            for f in ("rt", "valid")}
+    say("texture", f"{TRACK} stride {cfg.rt_pose_stride}, float32 rt: built with the march "
+        f"kernel in {seconds['kernel']:.2f} s ({launches['kernel']} launches), with its twin in "
+        f"{seconds['twin']:.2f} s; torch.equal {same}")
+    if not all(same.values()):
+        fail(f"texture: the kernel-marched texture differs from the twin-marched one: {same}")
+
+
 def launch_counts() -> dict:
-    from red_gym_tpu_torch.ops import (blend_kernels, scan_kernels, spectral_kernels,
-                                       state_kernels)
+    from red_gym_tpu_torch.ops import (blend_kernels, march_kernels, scan_kernels,
+                                       spectral_kernels, state_kernels)
 
     return {**{f"mega_edge_ttc[{k}]": v
                for k, v in scan_kernels.mega_edge_ttc.launches.items()},
             "prestep": state_kernels.prestep.launches,
             **{fn.__name__: fn.launches for fn in blend_kernels.KERNELS},
-            "theta_spectral_ttc": spectral_kernels.theta_spectral_ttc.launches}
+            "theta_spectral_ttc": spectral_kernels.theta_spectral_ttc.launches,
+            "march[rays]": march_kernels.march.launches,
+            "march[beams]": march_kernels.march_beams.launches}
 
 
 def reset_launch_counts() -> None:
-    from red_gym_tpu_torch.ops import (blend_kernels, scan_kernels, spectral_kernels,
-                                       state_kernels)
+    from red_gym_tpu_torch.ops import (blend_kernels, march_kernels, scan_kernels,
+                                       spectral_kernels, state_kernels)
 
+    march_kernels.reset_launches()
     scan_kernels.reset_launches()
     state_kernels.prestep.launches = 0
     blend_kernels.reset_launches()
@@ -738,9 +931,11 @@ def reset_launch_counts() -> None:
 
 
 def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
-              profile: bool) -> dict:
+              profile: bool, max_step_ms: float | None = None) -> dict:
     """Drive one path; ``uses`` names the launch counters it must advance
-    (once per step and reset step); every other counter must stay 0."""
+    (once per step and reset step); every other counter must stay 0.  With
+    ``max_step_ms``, a path whose warm-up steps took longer than that a step
+    times proportionally fewer steps, at least 20."""
     import torch
 
     from red_gym_tpu_torch import assets, rollout
@@ -752,10 +947,18 @@ def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
     policy = rollout.random_policy(cfg)
     state, obs, *_ = rollout.batched_reset(cfg, params, poses, gen)
     carry = rollout.RolloutCarry(state, obs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     carry, _ = rollout.make_rollout(cfg, params, policy, WARMUP_STEPS)(carry, gen)
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t0) / WARMUP_STEPS
+    if max_step_ms is not None and warm_ms > max_step_ms:
+        steps = max(20, min(steps, int(steps * max_step_ms / warm_ms)))
+        say(f"main:{label}", f"a warm-up step took {warm_ms:.1f} ms, above "
+            f"{max_step_ms:.0f} ms: timing {steps} steps")
     if profile:
         profile_steps(label, cfg, params, policy, carry, gen,
-                      table=label in ("default", "bilinear", "ultra"))
+                      table=label in ("default", "bilinear", "ultra", "exact"))
     run = rollout.make_rollout(cfg, params, policy, steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -825,8 +1028,8 @@ def profile_steps(label, cfg, params, policy, carry, gen, table: bool) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile 5 steps of the default, eager, bilinear and "
-                         "ultra paths")
+                    help="also profile 5 steps of the default, eager, bilinear, "
+                         "ultra and exact paths")
     args = ap.parse_args()
     try:
         import torch
@@ -890,6 +1093,9 @@ def main() -> None:
     if ultra.rt_channels != leg_cfg.rt_channels:
         fail("the ultra and legacy configs must read the same texture channels")
 
+    texture_phase(cfg, params.tmap)
+    exact_cfg = dataclasses.replace(cfg, scan_mode="exact")
+    march = march_phase(exact_cfg, params, dev, reports)
     mega = mega_phase(cfg, params, dev, reports)
     pre = prestep_phase(cfg, params, dev, reports)
     blend = blend_phase(bil, params, dev, reports)
@@ -918,6 +1124,13 @@ def main() -> None:
                              ("theta_spectral_ttc",), args.profile)
     main_path("ultra_ttc_off", dataclasses.replace(ultra, fuse_scan_ttc="off"),
               leg_params, dev, STEPS, (), False)
+    # the exact scan: SimConfig's default scan mode, no texture
+    exact_params = env.make_params(exact_cfg, assets.named_map_yaml(TRACK),
+                                   tmap=params.tmap, device=dev)
+    if exact_params.rtex is not None:
+        fail("exact: make_params built a range texture")
+    exact = main_path("exact", exact_cfg, exact_params, dev, STEPS, ("march[beams]",),
+                      args.profile, max_step_ms=MARCH_STEP_MS)
 
     mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
                 "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}
@@ -945,6 +1158,11 @@ def main() -> None:
                     "source": "red_gym_tpu_torch/csrc/theta_spectral.cu",
                     "replaces": "red_gym_tpu/ops/pallas_scan.py:692",
                     "launches": ultra_counts["theta_spectral_ttc"], **spectral})
+    records.append({"name": "march", "route": "cuda",
+                    "source": "red_gym_tpu_torch/csrc/march.cu",
+                    "replaces": "red_gym_tpu/ops/scan.py:153",
+                    "note": "not a TPU kernel: replaces the lax.while_loop of the march",
+                    "launches": exact["march[beams]"], **march})
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),

@@ -14,8 +14,12 @@ casting -> time/lap/done.  Randomness comes only from the
 the env's agents (the reference's identical-seed-per-car quirk,
 base_classes.py:117,202).
 
-The step runs on hand-written kernels where the config is in their scope:
-the pre-scan state kernel (``cfg.state_kernel``, ``ops/state_kernels.py``)
+The exact scan (``scan_mode="exact"``, SimConfig's default) marches every
+beam on the map's distance transform with the march kernel
+(``ops/march_kernels.py``), after the eager pre-scan chain, and adds the
+noise, iTTC check and opponent pass eagerly.  The fast scan runs on
+hand-written kernels where the config is in their scope: the pre-scan
+state kernel (``cfg.state_kernel``, ``ops/state_kernels.py``)
 and the scan megakernel (``cfg.scan_megakernel``) with the opponent ray
 cast in it (``cfg.fuse_scan_opp``) and, under ``noise_mode="pool_rot"``,
 its resident noise pool (``ops/scan_kernels.py``); without the megakernel,
@@ -93,9 +97,9 @@ class Observation(NamedTuple):
 def make_params(cfg: SimConfig, map_yaml_path: str, map_ext: str = ".png",
                 vehicle: Optional[VehicleParams] = None,
                 tmap: Optional[TrackMap] = None, device="cuda") -> EnvParams:
-    """Load the map, build the lidar tables, the range texture (marched on
-    ``device``, the card unless the caller passes "cpu") and the noise
-    pool."""
+    """Load the map, build the lidar tables, the range texture of the fast
+    scan (marched on ``device``, the card unless the caller passes "cpu";
+    the exact scan has none) and the noise pool."""
     device = resolve_device(device)
     scan_fast.check_supported(cfg)
     vehicle = vehicle if vehicle is not None else VehicleParams.default(
@@ -107,7 +111,9 @@ def make_params(cfg: SimConfig, map_yaml_path: str, map_ext: str = ".png",
         cfg, width=float(vehicle.width.reshape(-1)[0]),
         length=float(vehicle.lf.reshape(-1)[0] + vehicle.lr.reshape(-1)[0]),
         dtype=cfg.tdtype, device=device)
-    rtex = scan_fast.build_range_texture(tmap, cfg)
+    rtex = None
+    if cfg.scan_mode == "fast":
+        rtex = scan_fast.build_range_texture(tmap, cfg)
     return EnvParams(vehicle=vehicle, tables=tables, tmap=tmap, rtex=rtex,
                      noise_pool=_make_noise_pool(cfg, device))
 
@@ -220,8 +226,9 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
 
     # lidar: the noisy scan and the wall iTTC (pre-opponent scan), from the
     # megakernel or a fused edge epilogue (with the opponent ray cast where
-    # it rides the kernel), or from the clean scan plus the eager noise add
-    # and iTTC check, as the JAX package orders them
+    # it rides the kernel), or from the clean scan (the exact march or an
+    # unfused fast scan) plus the eager noise add and iTTC check, as the JAX
+    # package orders them
     noise, pool_off = _noise_rows(cfg, params, x.shape[0], gen)
     verts = col.get_vertices(poses, p.length, p.width)
     mega = scan_fast.use_megakernel(cfg)
@@ -234,8 +241,11 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
             fused_ttc=(noise, vel), opp=opp, pool_off=pool_off, pregeo=pregeo)
         ttc_hit = (hit01 > 0) & (vel != 0.0)
     else:
-        scans = scan_fast.trace_fast_mxu(poses, params.tables, params.tmap,
-                                         params.rtex, cfg)
+        if cfg.scan_mode == "exact":
+            scans = scan_ops.trace(poses, params.tables, params.tmap, cfg)
+        else:
+            scans = scan_fast.trace_fast_mxu(poses, params.tables, params.tmap,
+                                             params.rtex, cfg)
         if cfg.scan_noise_std > 0:
             scans = scans + noise.to(scans.dtype)[:, None, :]
         ttc_hit = agent_scan.check_ttc(scans, vel, params.tables, cfg.ttc_thresh)
@@ -319,23 +329,24 @@ def reset(cfg: SimConfig, params: EnvParams, poses, gen):
 class F110Env:
     """Stateful wrapper with the reference's gym-style API for one env:
     ``reset(poses (A, 3))`` and ``step(action (A, 2))`` return the classic
-    4-tuple with the reference's obs dict keys (f110_env.py:53-99).
-    ``scan_mode`` defaults to "fast", the only scan mode ported; rendering
-    is not ported.  It runs on the card unless ``device="cpu"``."""
+    4-tuple with the reference's obs dict keys (f110_env.py:53-99).  Its
+    config is built as the JAX package's ``F110Env`` builds it, so with no
+    ``scan_mode`` given it runs the exact scan, SimConfig's default.
+    ``tmap`` takes an already loaded map in place of ``map``.  Rendering is
+    not ported.  It runs on the card unless ``device="cpu"``."""
 
-    def __init__(self, map: str, map_ext: str = ".png",
+    def __init__(self, map: str | None = None, map_ext: str = ".png",
                  params: dict | VehicleParams | None = None,
                  num_agents: int = 2, timestep: float = 0.01, ego_idx: int = 0,
                  integrator: Integrator = Integrator.RK4,
                  fov: float = 2.0 * np.pi, seed: int = 12345,
                  num_beams: int = 1080, dtype: str = "float32",
-                 device="cuda", **kwargs):
-        fields = {k: v for k, v in kwargs.items()
-                  if k in SimConfig.__dataclass_fields__}
-        fields.setdefault("scan_mode", "fast")
+                 tmap: TrackMap | None = None, device="cuda", **kwargs):
         self.cfg = SimConfig(num_agents=num_agents, num_beams=num_beams,
                              fov=fov, timestep=timestep, ego_idx=ego_idx,
-                             integrator=integrator, dtype=dtype, **fields)
+                             integrator=integrator, dtype=dtype,
+                             **{k: v for k, v in kwargs.items()
+                                if k in SimConfig.__dataclass_fields__})
         self.device = resolve_device(device)
         if isinstance(params, dict):
             vehicle = VehicleParams.from_dict(params, self.cfg.tdtype, self.device)
@@ -343,8 +354,8 @@ class F110Env:
             vehicle = params
         else:
             vehicle = VehicleParams.default(self.cfg.tdtype, self.device)
-        map_yaml = map if map.endswith(".yaml") else f"{map}.yaml"
-        self.params = make_params(self.cfg, map_yaml, map_ext, vehicle,
+        map_yaml = f"{map}.yaml" if map and not map.endswith(".yaml") else map
+        self.params = make_params(self.cfg, map_yaml, map_ext, vehicle, tmap=tmap,
                                   device=self.device)
         self.seed = seed
         self.gen = torch.Generator(device=self.device)
@@ -365,6 +376,35 @@ class F110Env:
             self.cfg, self.params, self.state, action, self.gen)
         return self._legacy(obs), float(reward[0]), bool(done[0]), self._info(info)
 
+    def update_params(self, params: dict, index: int = -1):
+        """Replace the vehicle parameters (reference f110_env.py:362-373).
+        ``index < 0``: every agent gets ``params`` over the defaults.
+        ``index >= 0``: each field becomes per-agent (A,), and agent
+        ``index`` takes the values in ``params``; per-agent fields take the
+        step out of the state kernel's scope, to the eager chain."""
+        vehicle = self.params.vehicle
+        if index < 0:
+            vehicle = VehicleParams.from_dict(params, self.cfg.tdtype, self.device)
+        else:
+            a_n = self.cfg.num_agents
+            fields = {}
+            for name in VehicleParams._fields:
+                cur = torch.broadcast_to(getattr(vehicle, name), (a_n,)).clone()
+                if name in params:
+                    cur[index] = params[name]
+                fields[name] = cur
+            vehicle = VehicleParams(**fields)
+        self.params = self.params._replace(vehicle=vehicle)
+
+    def update_map(self, map_path: str, map_ext: str = ".png"):
+        """Load another map (the map yaml's path); in fast mode the range
+        texture is rebuilt for it, never kept stale."""
+        tmap = load_map(map_path, map_ext, dtype=self.cfg.tdtype, device=self.device)
+        rtex = self.params.rtex
+        if self.cfg.scan_mode == "fast":
+            rtex = scan_fast.build_range_texture(tmap, self.cfg)
+        self.params = self.params._replace(tmap=tmap, rtex=rtex)
+
     def _legacy(self, obs: Observation) -> dict:
         d = {k: getattr(obs, k)[0].cpu().numpy() for k in obs._fields}
         d["ego_idx"] = self.cfg.ego_idx
@@ -373,3 +413,8 @@ class F110Env:
     @staticmethod
     def _info(info) -> dict:
         return {"checkpoint_done": info["checkpoint_done"][0].cpu().numpy()}
+
+
+def make(map: str, **kwargs) -> F110Env:
+    """Construct an env (the reference's gym.make('f110_gym:f110-v0', ...))."""
+    return F110Env(map=map, **kwargs)

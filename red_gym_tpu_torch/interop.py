@@ -31,25 +31,28 @@ def to_tensor(a, device="cuda") -> torch.Tensor:
 
 
 def params_from_numpy(cfg: SimConfig, vehicle: Mapping, tables: Mapping,
-                      tmap: Mapping, rtex: Mapping,
+                      tmap: Mapping, rtex: Optional[Mapping],
                       noise_pool: Optional[np.ndarray] = None,
                       device="cuda") -> EnvParams:
     """EnvParams from the numpy leaves of JAX ``EnvParams`` fields.
 
     ``rtex`` needs rt, valid, hc, wc, cell, fmat, gmat and smat; the port's
-    per-step constants (fmat_sw, shift1, c_frac) are derived here.  ``noise_pool`` serves noise_mode "pool"
-    and "pool_rot" alike.  ``tables.noise_pool_ext``, the JAX package's
+    per-step constants (fmat_sw, shift1, c_frac) are derived here.  It is
+    None for the exact scan, whose JAX params carry no texture.
+    ``noise_pool`` serves noise_mode "pool" and "pool_rot" alike.  ``tables.noise_pool_ext``, the JAX package's
     wrap-extended pool for "pool_rot", is left out: the port's megakernel
     indexes the pool modulo its row count and needs no extended copy."""
     device = resolve_device(device)
     t = lambda a: to_tensor(a, device)  # noqa: E731
-    rt = {k: t(rtex[k]) for k in ("rt", "valid", "hc", "wc", "cell", "fmat",
-                                  "gmat", "smat")}
-    consts = scan_fast.texture_constants(cfg, rt["fmat"].dtype, device)
-    rt.update({k: consts[k] for k in ("fmat_sw", "shift1", "c_frac")})
+    rtex_t = None
+    if rtex is not None:
+        rt = {k: t(rtex[k]) for k in ("rt", "valid", "hc", "wc", "cell", "fmat",
+                                      "gmat", "smat")}
+        consts = scan_fast.texture_constants(cfg, rt["fmat"].dtype, device)
+        rt.update({k: consts[k] for k in ("fmat_sw", "shift1", "c_frac")})
+        rtex_t = scan_fast.RangeTexture(**rt)
     veh = VehicleParams(**{k: t(vehicle[k]) for k in VehicleParams._fields})
     tm = TrackMap(**{k: t(tmap[k]) for k in TrackMap._fields})
-    rtex_t = scan_fast.RangeTexture(**rt)
     return EnvParams(
         vehicle=veh,
         tables=scan_ops.ScanTables(**{k: t(tables[k]) for k in

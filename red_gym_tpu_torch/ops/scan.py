@@ -1,9 +1,14 @@
-"""Lidar tables and the exact sphere march on the map's distance transform.
+"""Lidar tables and the exact scan: the sphere march on the map's distance
+transform.
 
 PyTorch counterpart of ``red_gym_tpu/ops/scan.py`` (reference:
-gym/f110_gym/envs/laser_models.py:56-186).  The march here builds the fast
-scan's range texture; every ray runs the reference's arithmetic, so in
-float64 the ranges match the JAX march.
+gym/f110_gym/envs/laser_models.py:56-186, 429-454).  The march serves the
+exact scan, ``scan_mode="exact"`` (SimConfig's default), at every step
+(:func:`trace`, :func:`scan`), and the fast scan's range-texture build
+(:func:`march`, :func:`trace_angles`).  On a CUDA device both run the march
+kernel of ``ops/march_kernels.py``, on the CPU its plain twin; every ray
+runs the reference's arithmetic, so in float64 the ranges match the JAX
+march.
 """
 
 from __future__ import annotations
@@ -15,10 +20,10 @@ import torch
 
 from red_gym_tpu_torch.config import SimConfig, resolve_device
 from red_gym_tpu_torch.maps.loader import TrackMap
-
-# march(): rays still running are compacted out every this many iterations
-# (one host sync each); iterations past a ray's end are no-ops for it
-_MARCH_CHECK_EVERY = 8
+from red_gym_tpu_torch.ops import march_kernels
+# the march's cell lookup and theta indices live beside its kernel; they are
+# this module's names in the JAX package
+from red_gym_tpu_torch.ops.march_kernels import beam_theta_indices, dt_lookup  # noqa: F401
 
 
 class ScanTables(NamedTuple):
@@ -72,78 +77,22 @@ def build_tables(cfg: SimConfig, width: float, length: float, dtype=None,
                       side_distances=t(side_distances))
 
 
-def dt_lookup(x, y, tmap: TrackMap):
-    """Distance to the nearest obstacle at world point(s) (x, y).
-
-    Reference xy_2_rc semantics (laser_models.py:56-104), including the
-    out-of-bounds quirk: a point outside the map reads dt[h-1, w-1]."""
-    x_trans = x - tmap.orig_x
-    y_trans = y - tmap.orig_y
-    x_rot = x_trans * tmap.orig_c + y_trans * tmap.orig_s
-    y_rot = -x_trans * tmap.orig_s + y_trans * tmap.orig_c
-
-    res = tmap.resolution
-    w_m = tmap.width.to(x_rot.dtype) * res
-    h_m = tmap.height.to(y_rot.dtype) * res
-    oob = (x_rot < 0) | (x_rot >= w_m) | (y_rot < 0) | (y_rot >= h_m)
-
-    c = (x_rot / res).to(torch.int32)
-    r = (y_rot / res).to(torch.int32)
-    full_h, full_w = tmap.dt.shape
-    r = torch.where(oob, tmap.height - 1, torch.clamp(r, 0, full_h - 1))
-    c = torch.where(oob, tmap.width - 1, torch.clamp(c, 0, full_w - 1))
-    return tmap.dt.reshape(-1)[(r * full_w + c).long()]
-
-
-def _march_body(x, y, c, s, d, total, tmap, eps, max_range):
-    act = (d > eps) & (total <= max_range)
-    x = torch.where(act, x + d * c, x)
-    y = torch.where(act, y + d * s, y)
-    d_new = dt_lookup(x, y, tmap)
-    d = torch.where(act, d_new, d)
-    total = torch.where(act, total + d_new, total)
-    return x, y, d, total
-
-
 def march(x, y, c, s, tmap: TrackMap, cfg: SimConfig):
     """Sphere march from points (x, y) along directions (c, s), all of one
     shape (reference trace_ray, laser_models.py:107-146): step the full safe
     distance until within eps of an obstacle or beyond max_range, then
-    clamp to max_range.
+    clamp to max_range; ``cfg.march_iters > 0`` caps the iterations.  The
+    march kernel on a CUDA device, its twin on the CPU
+    (``march_kernels.march``)."""
+    return march_kernels.march(x, y, c, s, tmap, cfg)
 
-    With ``cfg.march_iters == 0`` the rays run until all have ended.  The
-    rays still running are compacted every few iterations, so late
-    iterations touch only the few long rays; extra iterations are no-ops
-    for a ray that has ended, so the result is the same as marching all
-    rays in lockstep."""
-    shape = x.shape
-    x, y = x.reshape(-1), y.reshape(-1)
-    c = torch.broadcast_to(c, shape).reshape(-1)
-    s = torch.broadcast_to(s, shape).reshape(-1)
-    d = dt_lookup(x, y, tmap)
-    total = d.clone()
-    eps, max_range = cfg.eps, cfg.max_range
 
-    if cfg.march_iters > 0:
-        for _ in range(cfg.march_iters):
-            x, y, d, total = _march_body(x, y, c, s, d, total, tmap, eps,
-                                         max_range)
-        return torch.clamp(total, max=max_range).reshape(shape)
-
-    out = total.clone()
-    live = torch.arange(x.numel(), device=x.device)
-    while True:
-        act = (d > eps) & (total <= max_range)
-        keep = torch.nonzero(act).squeeze(1)
-        out[live] = total
-        if keep.numel() == 0:
-            break
-        live = live[keep]
-        x, y, c, s, d, total = (v[keep] for v in (x, y, c, s, d, total))
-        for _ in range(_MARCH_CHECK_EVERY):
-            x, y, d, total = _march_body(x, y, c, s, d, total, tmap, eps,
-                                         max_range)
-    return torch.clamp(out, max=max_range).reshape(shape)
+def trace(pose, tables: ScanTables, tmap: TrackMap, cfg: SimConfig):
+    """Noiseless scan of pose(s) (..., 3) -> (..., num_beams) along the
+    theta-discretized beam table (reference get_scan, laser_models.py:
+    149-186): the march kernel's beams form on a CUDA device, its twin on
+    the CPU (``march_kernels.march_beams``)."""
+    return march_kernels.march_beams(pose, tables.cosines, tables.sines, tmap, cfg)
 
 
 def trace_angles(origins, angles, tmap: TrackMap, cfg: SimConfig):
@@ -153,3 +102,16 @@ def trace_angles(origins, angles, tmap: TrackMap, cfg: SimConfig):
     x = torch.broadcast_to(origins[..., 0:1], shape)
     y = torch.broadcast_to(origins[..., 1:2], shape)
     return march(x, y, torch.cos(angles), torch.sin(angles), tmap, cfg)
+
+
+def scan(pose, gen: Optional[torch.Generator], tables: ScanTables,
+         tmap: TrackMap, cfg: SimConfig):
+    """Scan with gaussian beam noise (reference laser_models.py:429-454):
+    :func:`trace`, plus ``cfg.scan_noise_std`` times a standard normal draw
+    from ``gen`` for every beam.  ``gen`` None gives the noiseless scan (the
+    JAX package takes a key where this takes a generator)."""
+    out = trace(pose, tables, tmap, cfg)
+    if gen is not None and cfg.scan_noise_std > 0:
+        out = out + cfg.scan_noise_std * torch.randn(
+            out.shape, generator=gen, dtype=out.dtype, device=out.device)
+    return out

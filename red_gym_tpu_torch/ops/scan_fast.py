@@ -5,9 +5,10 @@ marched once per map with the exact sphere march (``build_range_texture``);
 at every step each car reads its texture rows and a kernel turns them into
 the scan.
 
-Ported here: the compact texture build (base march, edge localization on
-the edge bins only, channel assembly), its disk cache, and the runtime of
-the fast scan in two branches:
+Ported here: the texture build (base march, edge localization on the edge
+bins only, channel assembly; or, under ``RGT_TEXTURE_BUILD=dense``, on
+every bin), its disk cache, and the runtime of the fast scan in two
+branches:
 
 - the megakernel (``ops/scan_kernels.py``) for the library default
   (nearest1 cell, edge + grad channels, float32), in every variant: the
@@ -25,8 +26,9 @@ the fast scan in two branches:
   the prep chain with the real-valued roll, then the spectral render of
   ``ops/spectral_kernels.py`` with noise and iTTC, or the plain product.
 
-The exact scan, the float64 fast scan and ``scan_backend="xla"`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The float64 fast scan and ``scan_backend="xla"`` raise
+``NotImplementedError``; the exact scan (``scan_mode="exact"``) is
+``ops/scan.py``'s and builds no texture.
 """
 
 from __future__ import annotations
@@ -78,18 +80,16 @@ def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for a config whose scan path is not ported,
     and ValueError for a kernel knob set "on" outside its kernel's scope.
 
-    The port runs the fast scan in float32: linear theta through the
-    megakernel or the unfused branch, spectral theta through the spectral
-    render.  Each other path names its ROADMAP item."""
-    if cfg.scan_mode != "fast":
-        raise NotImplementedError(
-            "scan_mode='exact' at step time is not ported yet "
-            "(ROADMAP queue A: the exact scan)")
-    if cfg.dtype != "float32":
+    The port runs the exact scan in float32 and float64, and the fast scan
+    in float32: linear theta through the megakernel or the unfused branch,
+    spectral theta through the spectral render.  The float64 fast scan
+    names its ROADMAP item; ``scan_backend``, which picks the fast scan's
+    backend, is refused only there."""
+    if cfg.scan_mode == "fast" and cfg.dtype != "float32":
         raise NotImplementedError(
             "the fast scan runs in float32 only: its kernels take float32 "
             "(ROADMAP queue A: the float64 fast scan)")
-    if cfg.scan_backend == "xla":
+    if cfg.scan_mode == "fast" and cfg.scan_backend == "xla":
         raise NotImplementedError(
             "scan_backend='xla' names the TPU compiler's path; the port has "
             "only its kernels (use 'auto' or 'pallas')")
@@ -249,8 +249,12 @@ def build_range_texture(tmap: TrackMap, cfg: SimConfig) -> RangeTexture:
     Rows are marched in batches of a bounded number of rays.  The build
     is the JAX package's compact recipe: the base march, then the edge
     localization (8-point fine grid, bisection, width probe) on only the
-    bins whose jump exceeds the edge threshold, then the channel assembly.
-    The result is cached on disk by content hash (_texture_cache_path)."""
+    bins of free cells whose jump exceeds the edge threshold, then the
+    channel assembly.  With ``RGT_TEXTURE_BUILD=dense`` it is the JAX
+    package's dense recipe, which the compact one is held against: every
+    bin localized, then the edge bins kept; the localization is elementwise,
+    so both give the same texture.  The result is cached on disk by content
+    hash (_texture_cache_path)."""
     stride, t_bins = cfg.rt_pose_stride, cfg.rt_theta_bins
     h, w = tmap.dt.shape
     hc, wc = (h + stride - 1) // stride, (w + stride - 1) // stride
@@ -260,6 +264,7 @@ def build_range_texture(tmap: TrackMap, cfg: SimConfig) -> RangeTexture:
                              dtype=dtype, device=device)
     need_edge = cfg.rt_eff_occlusion == "edge"
     need_grad = cfg.rt_grad
+    dense = os.environ.get("RGT_TEXTURE_BUILD", "").lower() == "dense"
     dth = 2.0 * math.pi / t_bins
     thr = cfg.rt_occlusion_cells * cell
 
@@ -317,8 +322,12 @@ def build_range_texture(tmap: TrackMap, cfg: SimConfig) -> RangeTexture:
     def edge_channels(ranges, free, x, y):
         nxt = torch.roll(ranges, -1, dims=-1)
         jump = torch.abs(nxt - ranges)
-        # bins of occupied cells are zeroed by the validity mask anyway
-        idx = torch.nonzero(((jump > thr) & free[..., None]).reshape(-1)).squeeze(1)
+        is_edge = jump > thr
+        if dense:
+            idx = torch.arange(ranges.numel(), device=device)
+        else:
+            # bins of occupied cells are zeroed by the validity mask anyway
+            idx = torch.nonzero((is_edge & free[..., None]).reshape(-1)).squeeze(1)
         e = torch.full_like(ranges, 0.5)
         w_ = torch.ones_like(ranges)
         for c0 in range(0, idx.numel(), _EDGE_CHUNK):
@@ -329,6 +338,9 @@ def build_range_texture(tmap: TrackMap, cfg: SimConfig) -> RangeTexture:
                                  nxt.reshape(-1)[sl], jump.reshape(-1)[sl])
             e.view(-1)[sl] = e_k
             w_.view(-1)[sl] = w_k
+        if dense:
+            e = torch.where(is_edge, e, torch.full_like(e, 0.5))
+            w_ = torch.where(is_edge, w_, torch.ones_like(w_))
         return e, w_, idx.numel()
 
     def finish_rows(ranges, free, x, y, ew):
@@ -385,7 +397,7 @@ def build_range_texture(tmap: TrackMap, cfg: SimConfig) -> RangeTexture:
             rt_rows.append(finish_rows(ranges, free, x, y, ew))
             valid_rows.append(free)
         print(f"[range-texture] {hc}x{wc} cells x {t_bins} bins marched in "
-              f"{time.time() - t_build:.1f}s ({n_edge} edge bins)",
+              f"{time.time() - t_build:.1f}s ({n_edge} bins edge-localized)",
               file=sys.stderr, flush=True)
         rt = torch.cat(rt_rows, dim=0).reshape(hc * wc, cfg.rt_channels * t_bins)
         valid = torch.cat(valid_rows, dim=0).reshape(hc * wc)

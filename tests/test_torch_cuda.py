@@ -15,7 +15,11 @@ edge epilogues (csrc/edge_render.cuh, the megakernel's render) and kernels
 5 and 7 (csrc/rowtile_gemm.cuh) at row and beam counts around their tiles
 (and at B = 1081, their 4-byte-copy paths), refused launches and wrong
 dtypes, and whole env steps on the GPU (default, unfused and spectral
-modes) against the same steps on the CPU.
+modes) against the same steps on the CPU.  The march kernel of the exact
+scan (csrc/march.cu) is held bit-equal to its twin in both entry forms,
+float32 and float64, march_iters 0 and 40, at ray counts around its block,
+from origins outside the map, and through a texture build; an exact-mode
+F110Env step on the GPU is held against the same step on the CPU.
 """
 
 import dataclasses
@@ -24,12 +28,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import close_poses, random_free_poses, random_states
+from chip_smoke import close_poses, map_free_poses, random_free_poses, random_states
 from red_gym_tpu_torch import assets, env, rollout
 from red_gym_tpu_torch.config import Integrator, SimConfig
 from red_gym_tpu_torch.maps.loader import load_map
-from red_gym_tpu_torch.ops import agent_scan, collision, scan_fast, scan_kernels
-from red_gym_tpu_torch.ops import state_kernels
+from red_gym_tpu_torch.ops import agent_scan, collision, march_kernels, scan
+from red_gym_tpu_torch.ops import scan_fast, scan_kernels, state_kernels
 
 pytestmark = pytest.mark.cuda
 TRACK = "track_0019"
@@ -846,3 +850,155 @@ def test_texture_built_on_gpu_matches_cpu(gpu_params):
     assert torch.equal(rt["cuda"].valid.cpu(), rt["cpu"].valid)
     err = (rt["cuda"].rt.cpu() - rt["cpu"].rt).abs()
     assert float((err <= 1e-3).float().mean()) >= 0.999
+
+
+@pytest.fixture(scope="module")
+def gpu_maps():
+    """track_0019 on the GPU in float32 and float64, with theta tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    out = {}
+    for dt in ("float32", "float64"):
+        cfg = SimConfig(dtype=dt)
+        tmap = load_map(assets.named_map_yaml(TRACK), dtype=cfg.tdtype,
+                        device=torch.device("cuda"))
+        out[dt] = (tmap, scan.build_tables(cfg, 0.31, 0.58, device=torch.device("cuda")))
+    return out
+
+
+def _march_both(form, tmap, tables, cfg, poses, gen):
+    """Kernel and twin of one march form on the same operands; the rays
+    form casts 16 rays from each pose at random angles."""
+    if form == "beams":
+        before = march_kernels.march_beams.launches
+        got = march_kernels.march_beams(poses, tables.cosines, tables.sines, tmap, cfg)
+        assert march_kernels.march_beams.launches == before + 1
+        want = march_kernels.march_beams_reference(poses, tables.cosines, tables.sines,
+                                                   tmap, cfg)
+        return got, want
+    shape = poses.shape[:-1] + (16,)
+    x = poses[..., 0:1].expand(shape)
+    y = poses[..., 1:2].expand(shape)
+    ang = 2 * torch.pi * torch.rand(shape, generator=gen, device=poses.device,
+                                    dtype=poses.dtype)
+    c, s_ = torch.cos(ang), torch.sin(ang)
+    before = march_kernels.march.launches
+    got = march_kernels.march(x, y, c, s_, tmap, cfg)
+    assert march_kernels.march.launches == before + 1
+    return got, march_kernels.march_reference(x, y, c, s_, tmap, cfg)
+
+
+@pytest.mark.parametrize("march_iters", [0, 40])
+@pytest.mark.parametrize("form", ["beams", "rays"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_march_kernel_bit_equal_to_twin(gpu_maps, dtype, form, march_iters):
+    tmap, tables = gpu_maps[dtype]
+    cfg = SimConfig(dtype=dtype, march_iters=march_iters)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    poses = map_free_poses(tmap, 512, gen).reshape(256, 2, 3)
+    got, want = _march_both(form, tmap, tables, cfg, poses, gen)
+    torch.cuda.synchronize()
+    assert got.dtype == tmap.dt.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert float(got.mean()) > 0.5 and float(got.max()) <= cfg.max_range
+
+
+@pytest.mark.parametrize("n", [1, 31, 255, 256, 257, 511, 513, 4097])
+def test_march_kernel_ray_counts_around_the_block(gpu_maps, n):
+    """Both forms at ray counts around the kernel's 256-thread block: rays
+    n, and beams of one car (B = n) and of n cars (B = 3)."""
+    tmap, tables = gpu_maps["float32"]
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    poses = map_free_poses(tmap, n, gen)
+    x, y = poses[:, 0], poses[:, 1]
+    ang = 2 * torch.pi * torch.rand((n,), generator=gen, device="cuda")
+    cfg = SimConfig()
+    got = march_kernels.march(x, y, torch.cos(ang), torch.sin(ang), tmap, cfg)
+    assert torch.equal(got, march_kernels.march_reference(
+        x, y, torch.cos(ang), torch.sin(ang), tmap, cfg))
+    for rows, beams in ((poses[:1], max(n, 2)), (poses, 3)):
+        c = dataclasses.replace(cfg, num_beams=beams)
+        got = march_kernels.march_beams(rows, tables.cosines, tables.sines, tmap, c)
+        assert got.shape == (rows.shape[0], beams)
+        assert torch.equal(got, march_kernels.march_beams_reference(
+            rows, tables.cosines, tables.sines, tmap, c))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_march_kernel_reads_the_out_of_map_cell(gpu_maps, dtype):
+    """Origins and ray tips outside the map read dt[h-1, w-1], as the twin
+    does; the headings include the wrap at 0 and 2 pi."""
+    tmap, tables = gpu_maps[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt = tmap.dt.dtype
+    n = 1024
+    x = tmap.orig_x + (torch.rand((n,), generator=gen, device="cuda", dtype=dt) * 1.4 - 0.2) \
+        * tmap.width.to(dt) * tmap.resolution
+    y = tmap.orig_y + (torch.rand((n,), generator=gen, device="cuda", dtype=dt) * 1.4 - 0.2) \
+        * tmap.height.to(dt) * tmap.resolution
+    th = torch.rand((n,), generator=gen, device="cuda", dtype=dt) * 14.0 - 7.0
+    th[:4] = torch.tensor([0.0, 2 * torch.pi, torch.pi, -torch.pi], dtype=dt)
+    poses = torch.stack([x, y, th], dim=-1)
+    out = march_kernels.dt_lookup(x, y, tmap)
+    assert (out == tmap.dt[-1, -1]).any(), "fixture guard: no origin outside the map"
+    cfg = SimConfig(dtype=dtype, num_beams=540)
+    got = march_kernels.march_beams(poses, tables.cosines, tables.sines, tmap, cfg)
+    assert torch.equal(got, march_kernels.march_beams_reference(
+        poses, tables.cosines, tables.sines, tmap, cfg))
+
+
+def test_march_kernel_rejects_what_it_cannot_take(gpu_maps):
+    tmap, tables = gpu_maps["float32"]
+    poses = torch.zeros((4, 3), device="cuda")
+    cfg = SimConfig()
+    with pytest.raises(ValueError, match="float32 or float64"):
+        march_kernels.march_beams(poses.half(), tables.cosines, tables.sines, tmap, cfg)
+    with pytest.raises(ValueError, match="cosines"):
+        march_kernels.march_beams(poses, tables.cosines.double(), tables.sines, tmap, cfg)
+    with pytest.raises(ValueError, match="tmap.dt"):
+        march_kernels.march_beams(poses.double(), tables.cosines.double(),
+                                  tables.sines.double(), tmap, SimConfig(dtype="float64"))
+    with pytest.raises(ValueError, match="one device and dtype"):
+        march_kernels.march(poses[:, 0], poses[:, 1].double(), poses[:, 0], poses[:, 1],
+                            tmap, cfg)
+
+
+def test_texture_marched_by_the_kernel_equals_the_twins(gpu_maps, monkeypatch):
+    """The stride-8 texture built on the GPU with its rays marched by the
+    kernel and by the twin (``march_kernels.march`` swapped), float32
+    storage: rt and valid torch.equal."""
+    tmap, _ = gpu_maps["float32"]
+    cfg = SimConfig(num_agents=2, num_beams=1080, scan_mode="fast", rt_pose_stride=8,
+                    rt_dtype="float32")
+    monkeypatch.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
+    before = march_kernels.march.launches
+    by_kernel = scan_fast.build_range_texture(tmap, cfg)
+    assert march_kernels.march.launches > before
+    monkeypatch.setattr(march_kernels, "march", march_kernels.march_reference)
+    by_twin = scan_fast.build_range_texture(tmap, cfg)
+    assert torch.equal(by_kernel.rt, by_twin.rt)
+    assert torch.equal(by_kernel.valid, by_twin.valid)
+
+
+def test_exact_f110env_step_on_gpu_matches_cpu(gpu_maps):
+    """An exact-mode F110Env (the default scan mode) reset + 5 steps on the
+    GPU (the march kernel) and on the CPU (its twin), without scan noise
+    (the two devices' generators differ): poses within 1e-4 m, scans at
+    the float32 bar with map cells, collisions equal."""
+    envs = {dev: env.F110Env(map=assets.named_map_yaml(TRACK), scan_noise_std=0.0,
+                             ttc_thresh=0.5, device=dev) for dev in ("cuda", "cpu")}
+    assert envs["cuda"].cfg.scan_mode == "exact"
+    poses = assets.waypoint_start_poses(TRACK, 2)
+    act = np.array([[0.2, 4.0], [-0.1, 3.0]])
+    before = march_kernels.march_beams.launches
+    obs = {dev: [e.reset(poses)[0]] + [e.step(act)[0] for _ in range(5)]
+           for dev, e in envs.items()}
+    assert march_kernels.march_beams.launches == before + 6
+    res = float(envs["cpu"].params.tmap.resolution)
+    for og, oc in zip(obs["cuda"], obs["cpu"]):
+        for k in ("poses_x", "poses_y", "poses_theta"):
+            np.testing.assert_allclose(og[k], oc[k], rtol=0, atol=1e-4, err_msg=k)
+        err = np.abs(og["scans"].astype(np.float64) - oc["scans"])
+        assert np.quantile(err, 0.99) < 1e-3
+        assert np.mean(err > 4 * res) < 2e-3
+        np.testing.assert_array_equal(og["collisions"], oc["collisions"])

@@ -174,10 +174,11 @@ def _check_auto_reset_step(setup):
 
 
 def test_f110env_reset_and_step(tmp_path, monkeypatch):
-    """The gym-style wrapper: reference obs keys, shapes and a clean step."""
+    """The gym-style wrapper in the fast scan: reference obs keys, shapes
+    and a clean step (its default, the exact scan, is test_torch_exact.py's)."""
     monkeypatch.setenv("RED_GYM_TPU_TEXTURE_CACHE", str(tmp_path))
     env = tenv.F110Env(map=assets.named_map_yaml(TRACK), num_beams=B,
-                       rt_pose_stride=8, device="cpu")
+                       scan_mode="fast", rt_pose_stride=8, device="cpu")
     obs, reward, done, info = env.reset(assets.waypoint_start_poses(TRACK, A))
     assert reward == pytest.approx(0.01)
     assert not done
@@ -203,8 +204,8 @@ def test_f110env_spectral_reset_and_step(tmp_path, monkeypatch):
     monkeypatch.setattr(spectral_kernels, "theta_spectral_ttc",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     env = tenv.F110Env(map=assets.named_map_yaml(TRACK), num_beams=B,
-                       rt_pose_stride=8, scan_interp="spectral", rt_grad=False,
-                       rt_occlusion="off", device="cpu")
+                       scan_mode="fast", rt_pose_stride=8, scan_interp="spectral",
+                       rt_grad=False, rt_occlusion="off", device="cpu")
     assert env.params.rtex.rt.shape[1] == env.cfg.rt_theta_bins
     obs, _, done, _ = env.reset(assets.waypoint_start_poses(TRACK, A))
     for _ in range(3):
@@ -219,7 +220,6 @@ def _kw_id(v):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(scan_mode="exact"), "the exact scan"),
     (dict(dtype="float64"), "the float64 fast scan"),
     (dict(scan_backend="xla"), "scan_backend='xla'"),
 ], ids=_kw_id)
