@@ -90,12 +90,34 @@ line:
    - exact (scan_mode="exact", SimConfig's default; no texture): the eager
      pre-scan chain, the march kernel's beams form, the eager noise add,
      iTTC check and opponent pass; if a warm-up step takes more than 50 ms
-     it times proportionally fewer steps, at least 20, and says so.
+     it times proportionally fewer steps, at least 20, and says so;
+6. multi-map batches (examples/train_ppo.py --multi-map): all 11 packaged
+   tracks stacked by env.make_multimap_params (each map padded to the
+   largest, 952 x 947 px; each texture built on its raw map by the march
+   kernel, padded and stacked), with its set-up seconds (the exact params:
+   11 EDTs and the stacking; the fast params: that and 11 texture builds);
+   env e on map e % 11, both cars at that track's waypoint rows 0 and 8;
+   - the march kernel's stacked form at ENVS x AGENTS x BEAMS on random
+     free poses of each env's map: torch.equal to its twin in float32, with
+     march_iters=40 and in float64 (MARCH_F64_ENVS envs), iterations a ray,
+     times, registers and bound; and the envs of each map torch.equal to
+     the same poses marched on that map alone;
+   - the megakernel with opponents on the stacked texture (the flat
+     (11 x N, 640) view) against its twin at the scan bar, hits equal; and
+     the rows of each map's envs torch.equal to the same poses, speeds,
+     noise rows and opponents run on that map alone (its own params);
+   - four main paths with auto-reset onto a uniformly drawn track and its
+     start (make_rollout's randomize_starts), prestep launched 0 times on
+     each: multimap (the default config: the eager pre-scan chain and the
+     megakernel with opponents), multimap_bilinear (kernel 4),
+     multimap_ultra (train_ppo.py --ultra --multi-map: kernel 5) and
+     multimap_exact (the march kernel's stacked form).
 
 ``--profile`` adds torch.profiler summaries (device kernels and device
 busy time per step) of the default, eager, bilinear, ultra and exact
-paths, and tables of the default, bilinear, ultra and exact paths' kernels
-by device time.
+paths and of the four multi-map paths, and tables of the default,
+bilinear, ultra, exact, multimap and multimap_exact paths' kernels by
+device time.
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
@@ -431,6 +453,7 @@ KERNEL_FUNCTIONS = {
     "theta_shuffle_blend": ("theta_blend", "theta_shuffle_blend_kernel<true>"),
     "theta_spectral_ttc": ("theta_spectral", "theta_spectral_kernel<__nv_bfloat16, true>"),
     "march": ("march", "march_beams_kernel<float>"),
+    "march+stacked": ("march", "march_beams_stacked_kernel<float>"),
 }
 
 
@@ -760,11 +783,12 @@ def prestep_phase(cfg, params, dev, reports) -> dict:
     return {"max_abs_err": max_err, **rec, "floor_ms": floor_ms, "host_us": wrapper_us}
 
 
-def march_iterations(poses, tables, tmap, cfg):
-    """Iterations of every ray of the march's beams form at poses (..., 3),
-    counted by an eager replay of the twin's march body
-    (``march_kernels._march_body``), the rays still running compacted every
-    iteration -> (iterations (...) int32 flat, ranges (..., B))."""
+def march_iterations(poses, tables, tmap, cfg, midx=None):
+    """Iterations of every ray of the march's beams form at poses (..., 3)
+    (on each pose's map of a stack with ``midx`` (...)), counted by an
+    eager replay of the twin's march body (``march_kernels._march_body``),
+    the rays still running compacted every iteration -> (iterations (...)
+    int32 flat, ranges (..., B))."""
     import torch
 
     from red_gym_tpu_torch.ops import march_kernels as mk
@@ -774,7 +798,9 @@ def march_iterations(poses, tables, tmap, cfg):
     x = torch.broadcast_to(poses[..., 0:1], shape).reshape(-1)
     y = torch.broadcast_to(poses[..., 1:2], shape).reshape(-1)
     c, s = tables.cosines[idx].reshape(-1), tables.sines[idx].reshape(-1)
-    d = mk.dt_lookup(x, y, tmap)
+    if midx is not None:
+        midx = torch.broadcast_to(midx[..., None], shape).reshape(-1)
+    d = mk.dt_lookup(x, y, tmap, midx)
     total = d.clone()
     out = total.clone()
     n_it = torch.zeros(x.numel(), dtype=torch.int32, device=x.device)
@@ -787,18 +813,37 @@ def march_iterations(poses, tables, tmap, cfg):
             break
         live = live[keep]
         x, y, c, s, d, total = (v[keep] for v in (x, y, c, s, d, total))
+        if midx is not None:
+            midx = midx[keep]
         n_it[live] += 1
-        x, y, d, total = mk._march_body(x, y, c, s, d, total, tmap, cfg.eps, cfg.max_range)
+        x, y, d, total = mk._march_body(x, y, c, s, d, total, tmap, cfg.eps, cfg.max_range,
+                                        midx)
     return n_it, torch.clamp(out, max=cfg.max_range).reshape(shape)
 
 
-def march_bound(out, tmap, tables, poses, iterations: int, rays: int) -> dict:
+def iteration_stats(n_it) -> dict:
+    """Iterations a ray: mean, p99, max, and the mean over warps (32
+    neighbouring rays, which a warp of the kernel holds and runs as long as
+    its longest) of that longest."""
+    import torch
+
+    rays = n_it.numel()
+    srt = n_it.sort().values
+    warp_max = torch.nn.functional.pad(n_it, (0, -rays % 32)).reshape(-1, 32).amax(dim=1)
+    return {"mean": float(n_it.float().mean()), "p99": int(srt[int(0.99 * (rays - 1))]),
+            "max": int(srt[-1]), "warp_max_mean": float(warp_max.float().mean())}
+
+
+def march_bound(out, tmap, tables, poses, iterations: int, rays: int,
+                midx=None) -> dict:
     """The float32 march's bound: its operations (MARCH_OPS_PER_ITER a
     counted iteration and the first lookup of each ray, THETA_INDEX_OPS a
     ray) against its bytes (the (K, B) output written once, the distance
-    transform, poses and theta tables read once)."""
+    transform or the stack of them, poses, map indices and theta tables
+    read once)."""
     ops = MARCH_OPS_PER_ITER * (iterations + rays) + THETA_INDEX_OPS * rays
-    return bound(nbytes(out, tmap.dt, poses, tables.cosines, tables.sines), f32=float(ops))
+    return bound(nbytes(out, tmap.dt, poses, midx, tables.cosines, tables.sines),
+                 f32=float(ops))
 
 
 def march_phase(cfg, params, dev, reports) -> dict:
@@ -827,12 +872,7 @@ def march_phase(cfg, params, dev, reports) -> dict:
     n_it, out_e = march_iterations(poses, tables, tmap, cfg)
     torch.cuda.synchronize()
     rays = n_it.numel()
-    srt = n_it.sort().values
-    # a warp of the kernel holds 32 neighbouring rays and runs as long as its
-    # longest: the mean over warps of that longest, against the mean ray
-    warp_max = torch.nn.functional.pad(n_it, (0, -rays % 32)).reshape(-1, 32).amax(dim=1)
-    its = {"mean": float(n_it.float().mean()), "p99": int(srt[int(0.99 * (rays - 1))]),
-           "max": int(srt[-1]), "warp_max_mean": float(warp_max.float().mean())}
+    its = iteration_stats(n_it)
     checks = {"float32": torch.equal(out_k, out_r), "replay": torch.equal(out_k, out_e)}
     say("kernel", f"march: {ENVS} x {AGENTS} cars x {cfg.num_beams} beams = {rays} rays, "
         f"float32: kernel torch.equal to its twin {checks['float32']} and to the counted "
@@ -906,6 +946,165 @@ def texture_phase(cfg, tmap) -> None:
         fail(f"texture: the kernel-marched texture differs from the twin-marched one: {same}")
 
 
+def map_of_stack(tmap, m: int, unpad: bool = False):
+    """Map m of a stack of maps (env.make_multimap_params) as one map: its
+    padded rows and columns, or with ``unpad`` its true extents only, which
+    is the raw map (the padding is zeros appended after the EDT)."""
+    from red_gym_tpu_torch.maps.loader import TrackMap
+
+    one = TrackMap(*(f[m] for f in tmap))
+    if unpad:
+        h, w = int(one.height), int(one.width)
+        one = one._replace(dt=one.dt[:h, :w].contiguous(),
+                           occupancy=one.occupancy[:h, :w].contiguous())
+    return one
+
+
+def params_of_stack(params, m: int):
+    """Map m of map-stacked params as one map's params, padded: its map
+    and its texture of the stack (rows, validity, grid and cell), for
+    drawing poses on it."""
+    rtex = params.rtex._replace(**{f: getattr(params.rtex, f)[m]
+                                   for f in ("rt", "valid", "hc", "wc", "cell")})
+    return params._replace(tmap=map_of_stack(params.tmap, m), rtex=rtex)
+
+
+def per_map_poses(draw, midx, a_n: int):
+    """(E, a_n, 3) poses, those of the envs on map m drawn by ``draw(m,
+    n_envs)`` -> (n_envs, a_n, 3)."""
+    import torch
+
+    out = None
+    for m in range(int(midx.max()) + 1):
+        sel = torch.nonzero(midx == m).squeeze(1)
+        p = draw(m, sel.numel())
+        if out is None:
+            out = p.new_zeros((midx.numel(), a_n, 3))
+        out[sel] = p
+    return out
+
+
+def to_float64(tmap):
+    from red_gym_tpu_torch.maps.loader import TrackMap
+
+    return TrackMap(*(f.double() if f.is_floating_point() else f for f in tmap))
+
+
+def multimap_march_phase(cfg, params, midx, dev, reports) -> dict:
+    """The march kernel's stacked form against its twin at full width:
+    ENVS x AGENTS cars on random free poses of each env's map of the stack,
+    BEAMS beams, float32, every range ``torch.equal``; the same with
+    march_iters=40, and in float64 on MARCH_F64_ENVS envs; the envs of each
+    map ``torch.equal`` to the same poses marched on that map alone (the
+    raw map); iterations a ray from the eager replay; times and bound."""
+    import torch
+
+    from red_gym_tpu_torch.ops import march_kernels as mk, scan
+
+    tmap, tables = params.tmap, params.tables
+    m_n = tmap.dt.shape[0]
+    raws = [map_of_stack(tmap, m, unpad=True) for m in range(m_n)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    poses = per_map_poses(lambda m, n: map_free_poses(raws[m], n * AGENTS, gen).reshape(
+        n, AGENTS, 3), midx, AGENTS)
+    row_maps = midx[:, None].expand(ENVS, AGENTS).contiguous()
+
+    def kernel():
+        return mk.march_beams(poses, tables.cosines, tables.sines, tmap, cfg, row_maps)
+
+    def twin():
+        return mk.march_beams_reference(poses, tables.cosines, tables.sines, tmap, cfg,
+                                        row_maps)
+
+    out_k, out_r = kernel(), twin()
+    n_it, out_e = march_iterations(poses, tables, tmap, cfg, row_maps)
+    torch.cuda.synchronize()
+    its = iteration_stats(n_it)
+    checks = {"float32": torch.equal(out_k, out_r), "replay": torch.equal(out_k, out_e)}
+    it_cfg = dataclasses.replace(cfg, march_iters=40)
+    checks["march_iters=40"] = torch.equal(
+        mk.march_beams(poses, tables.cosines, tables.sines, tmap, it_cfg, row_maps),
+        mk.march_beams_reference(poses, tables.cosines, tables.sines, tmap, it_cfg,
+                                 row_maps))
+    c64 = dataclasses.replace(cfg, dtype="float64")
+    t64 = to_float64(tmap)
+    tab64 = scan.build_tables(c64, 0.31, 0.58, device=dev)
+    m64 = row_maps[:MARCH_F64_ENVS]
+    p64 = poses[:MARCH_F64_ENVS].double()
+    checks["float64"] = torch.equal(
+        mk.march_beams(p64, tab64.cosines, tab64.sines, t64, c64, m64),
+        mk.march_beams_reference(p64, tab64.cosines, tab64.sines, t64, c64, m64))
+    alone = {}
+    for m in range(m_n):
+        sel = torch.nonzero(midx == m).squeeze(1)
+        alone[m] = torch.equal(out_k[sel], mk.march_beams(
+            poses[sel], tables.cosines, tables.sines, raws[m], cfg))
+    torch.cuda.synchronize()
+    checks["stacked == standalone, every map"] = all(alone.values())
+    say("kernel", f"march (stacked, {m_n} maps, env e on map e % {m_n}): {ENVS} x "
+        f"{AGENTS} cars x {cfg.num_beams} beams = {n_it.numel()} rays; iterations a ray "
+        f"mean {its['mean']:.2f}, p99 {its['p99']}, max {its['max']}, longest of a warp's "
+        f"32 mean {its['warp_max_mean']:.2f}; ranges in [{float(out_k.min()):.3f}, "
+        f"{float(out_k.max()):.3f}] m; torch.equal: {checks}; by map {alone}")
+    if not all(checks.values()):
+        fail(f"march (stacked): kernel not bit-equal: {checks}, by map {alone}")
+    if float(out_k.mean()) < 0.5:
+        fail("march (stacked): mean range under 0.5 m: degenerate poses")
+    iters = int(n_it.sum(dtype=torch.int64))
+    lims = march_bound(out_k, tmap, tables, poses, iters, n_it.numel(), row_maps)
+    say("kernel", f"march (stacked): bound from {iters} counted iterations, against "
+        f"{nbytes(out_k, tmap.dt, poses, row_maps, tables.cosines, tables.sines) / 1e6:.1f}"
+        f" MB")
+    rec = timed("march (stacked)", kernel, twin, lims, resources(reports, "march+stacked"),
+                ("march_beams_stacked_kernel",))
+    return {"max_abs_err": float((out_k - out_r).abs().max()), **rec, "iterations": its}
+
+
+def multimap_mega_phase(cfg, params, yamls, midx, dev) -> None:
+    """The megakernel with opponents on the stacked texture against its
+    twin (the scan bar, hits equal), on close poses in free cells of each
+    env's map; and for every map, its envs' rows ``torch.equal`` to the
+    same operands run on that map alone (its own params: the raw map and
+    the texture built on it)."""
+    import torch
+
+    from red_gym_tpu_torch import env
+    from red_gym_tpu_torch.ops import agent_scan, collision, scan_fast, scan_kernels
+
+    mega, ref = scan_kernels.mega_edge_ttc, scan_kernels.mega_edge_ttc_reference
+    m_n = params.tmap.dt.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    poses = per_map_poses(lambda m, n: close_poses(params_of_stack(params, m), n, AGENTS,
+                                                   gen), midx, AGENTS)
+    vel = -2.0 + 10.0 * torch.rand((ENVS, AGENTS), generator=gen, device=dev)
+    rows = torch.randint(0, cfg.noise_pool_rows, (ENVS,), generator=gen, device=dev)
+    noise = params.noise_pool[rows]
+    verts = collision.get_vertices(poses, params.vehicle.length, params.vehicle.width)
+    opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
+    ops = scan_fast.mega_operands(poses, params.tables, params.tmap, params.rtex, cfg, noise,
+                                  vel, opp=opp, midx=midx[:, None])
+    out_k, hit_k = mega(**ops)
+    out_r, hit_r = ref(**ops)
+    torch.cuda.synchronize()
+    cell = float(params.rtex.cell.min())
+    scan_bar("opp (stacked texture)", out_k, hit_k, out_r, hit_r, cell)
+    out_k, hit_k = out_k.reshape(ENVS, AGENTS, -1), hit_k.reshape(ENVS, AGENTS)
+    alone = {}
+    for m in range(m_n):
+        sel = torch.nonzero(midx == m).squeeze(1)
+        one = env.make_params(cfg, yamls[m], tmap=map_of_stack(params.tmap, m, unpad=True),
+                              device=dev)
+        o, h = mega(**scan_fast.mega_operands(poses[sel], one.tables, one.tmap, one.rtex, cfg,
+                                              noise[sel], vel[sel], opp=opp[sel]))
+        alone[m] = (torch.equal(o.reshape(-1, AGENTS, o.shape[-1]), out_k[sel])
+                    and torch.equal(h.reshape(-1, AGENTS), hit_k[sel]))
+        del one
+    say("kernel", f"opp (stacked texture, {tuple(ops['rt'].shape)} {ops['rt'].dtype}): "
+        f"each map's envs torch.equal to the map alone: {alone}")
+    if not all(alone.values()):
+        fail(f"megakernel: the stacked run differs from the maps alone: {alone}")
+
+
 def launch_counts() -> dict:
     from red_gym_tpu_torch.ops import (blend_kernels, march_kernels, scan_kernels,
                                        spectral_kernels, state_kernels)
@@ -931,25 +1130,35 @@ def reset_launch_counts() -> None:
 
 
 def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
-              profile: bool, max_step_ms: float | None = None) -> dict:
+              profile: bool, max_step_ms: float | None = None, maps=None) -> dict:
     """Drive one path; ``uses`` names the launch counters it must advance
     (once per step and reset step); every other counter must stay 0.  With
     ``max_step_ms``, a path whose warm-up steps took longer than that a step
-    times proportionally fewer steps, at least 20."""
+    times proportionally fewer steps, at least 20.  ``maps`` = (map_idx
+    (E,), start table (M, A, 3)) runs map-stacked params: env e starts at
+    its map's row of the table, and each auto-reset draws a map and its
+    start (make_rollout's randomize_starts)."""
     import torch
 
     from red_gym_tpu_torch import assets, rollout
 
-    start = torch.as_tensor(assets.waypoint_start_poses(TRACK, AGENTS),
-                            dtype=cfg.tdtype, device=dev)
-    poses = start.expand(ENVS, AGENTS, 3).contiguous()
+    roll_kw = {}
+    if maps is None:
+        start = torch.as_tensor(assets.waypoint_start_poses(TRACK, AGENTS),
+                                dtype=cfg.tdtype, device=dev)
+        poses = start.expand(ENVS, AGENTS, 3).contiguous()
+        reset_kw = {}
+    else:
+        midx, table = maps
+        poses = table[midx.long()]
+        reset_kw, roll_kw = {"map_idx": midx}, {"randomize_starts": table}
     gen = torch.Generator(device=dev).manual_seed(1)
     policy = rollout.random_policy(cfg)
-    state, obs, *_ = rollout.batched_reset(cfg, params, poses, gen)
+    state, obs, *_ = rollout.batched_reset(cfg, params, poses, gen, **reset_kw)
     carry = rollout.RolloutCarry(state, obs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    carry, _ = rollout.make_rollout(cfg, params, policy, WARMUP_STEPS)(carry, gen)
+    carry, _ = rollout.make_rollout(cfg, params, policy, WARMUP_STEPS, **roll_kw)(carry, gen)
     torch.cuda.synchronize()
     warm_ms = 1e3 * (time.perf_counter() - t0) / WARMUP_STEPS
     if max_step_ms is not None and warm_ms > max_step_ms:
@@ -958,8 +1167,9 @@ def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
             f"{max_step_ms:.0f} ms: timing {steps} steps")
     if profile:
         profile_steps(label, cfg, params, policy, carry, gen,
-                      table=label in ("default", "bilinear", "ultra", "exact"))
-    run = rollout.make_rollout(cfg, params, policy, steps)
+                      table=label in ("default", "bilinear", "ultra", "exact", "multimap",
+                                      "multimap_exact"), roll_kw=roll_kw)
+    run = rollout.make_rollout(cfg, params, policy, steps, **roll_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
@@ -996,10 +1206,16 @@ def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
         f"{float(scans.mean()):.3f} m, {100 * far_beams:.1f}% of beams beyond 0.5 m")
     if far_beams < 0.5:
         fail(f"{label}: most beams read under 0.5 m: degenerate scans")
+    if maps is not None:
+        used = torch.bincount(carry.state.map_idx.long(), minlength=maps[1].shape[0])
+        say(f"main:{label}", f"envs on each map after the run: {used.tolist()}")
+        if int((used > 0).sum()) < maps[1].shape[0]:
+            fail(f"{label}: some map has no env left")
     return counts
 
 
-def profile_steps(label, cfg, params, policy, carry, gen, table: bool) -> None:
+def profile_steps(label, cfg, params, policy, carry, gen, table: bool,
+                  roll_kw: dict) -> None:
     """Device kernels and device busy time per step over 5 steps
     (torch.profiler), and with ``table`` the kernels by device time."""
     import torch
@@ -1008,7 +1224,7 @@ def profile_steps(label, cfg, params, policy, carry, gen, table: bool) -> None:
     from red_gym_tpu_torch import rollout
 
     n = 5
-    run = rollout.make_rollout(cfg, params, policy, n)
+    run = rollout.make_rollout(cfg, params, policy, n, **roll_kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, outs = run(carry, gen)
@@ -1131,6 +1347,42 @@ def main() -> None:
         fail("exact: make_params built a range texture")
     exact = main_path("exact", exact_cfg, exact_params, dev, STEPS, ("march[beams]",),
                       args.profile, max_step_ms=MARCH_STEP_MS)
+    del params, leg_params, exact_params
+
+    # multi-map batches: every packaged track, stacked (train_ppo.py --multi-map)
+    tracks = assets.packaged_tracks()
+    setup, mm = {}, {}
+    for name, c in (("exact", exact_cfg), ("default", cfg), ("ultra", ultra)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mm[name] = env.make_multimap_params(c, tracks, device=dev)
+        torch.cuda.synchronize()
+        setup[name] = time.perf_counter() - t0
+    dt_shape = tuple(mm["exact"].tmap.dt.shape)
+    rt = mm["default"].rtex.rt
+    say("multimap", f"{len(tracks)} tracks stacked: dt {dt_shape}; "
+        f"make_multimap_params (map loads, EDTs on the host, padding, stacking) exact "
+        f"{setup['exact']:.2f} s; default (and {len(tracks)} textures marched on the card, "
+        f"padded, stacked: rt {tuple(rt.shape)} {rt.dtype}, "
+        f"{rt.numel() * rt.element_size() / 1e9:.2f} GB) {setup['default']:.2f} s; ultra "
+        f"(1-channel textures, rt {tuple(mm['ultra'].rtex.rt.shape)}) {setup['ultra']:.2f} s")
+    midx = (torch.arange(ENVS, device=dev) % len(tracks)).to(torch.int32)
+    table = torch.as_tensor(assets.start_pose_table(tracks, AGENTS), dtype=cfg.tdtype,
+                            device=dev)
+    mm_march = multimap_march_phase(exact_cfg, mm["exact"], midx, dev, reports)
+    multimap_mega_phase(cfg, mm["default"], tracks, midx, dev)
+    maps = (midx, table)
+    mm_default = main_path("multimap", cfg, mm["default"], dev, STEPS,
+                           ("mega_edge_ttc[opp]",), args.profile, maps=maps)
+    main_path("multimap_bilinear", bil, mm["default"], dev, STEPS,
+              ("theta_shuffle_blend_edge_ttc_opp",), args.profile, maps=maps)
+    main_path("multimap_ultra", ultra, mm["ultra"], dev, STEPS, ("theta_spectral_ttc",),
+              args.profile, maps=maps)
+    mm_exact = main_path("multimap_exact", exact_cfg, mm["exact"], dev, STEPS,
+                         ("march[beams]",), args.profile, max_step_ms=MARCH_STEP_MS,
+                         maps=maps)
+    if mm_default["prestep"] != 0:
+        fail("multimap: the state kernel ran under map_idx")
 
     mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
                 "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}
@@ -1163,6 +1415,12 @@ def main() -> None:
                     "replaces": "red_gym_tpu/ops/scan.py:153",
                     "note": "not a TPU kernel: replaces the lax.while_loop of the march",
                     "launches": exact["march[beams]"], **march})
+    records.append({"name": "march+stacked", "route": "cuda",
+                    "source": "red_gym_tpu_torch/csrc/march.cu",
+                    "replaces": "red_gym_tpu/ops/scan.py:153",
+                    "note": "the march's stacked form (multi-map, a map index a pose row); "
+                            "not a TPU kernel",
+                    "launches": mm_exact["march[beams]"], **mm_march})
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),

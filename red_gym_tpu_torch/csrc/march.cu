@@ -14,6 +14,12 @@
 //          of beam b computes its theta index as beam_theta_indices does and
 //          reads its cos/sin from the tables, so only the (K, B) output is
 //          written.
+// Each form marches one map, or a stack of M maps of one padded shape
+// (multi-map batches): then an int32 map index per ray (rays) or per pose
+// row (beams) picks the map, whose scalars are read at that index of their
+// (M,) arrays and whose distance transform starts at m * H * W of the
+// (M, H, W) stack, addressed in size_t (JAX scan.py:96-137, dt_lookup with
+// midx).  A null index array is the one-map form: index 0 of 0-d scalars.
 //
 // Rounding.  Built with -fmad=false (ops/_build.py): every + - * / is
 // rounded on its own, in the association of the PyTorch code, with IEEE
@@ -39,6 +45,15 @@
 // through the read-only cache.  It took 1.10 ms on an H100 80GB HBM3 at
 // 700 W (PERF.md).  Compacting the rays still running, or a persistent
 // grid, would cut the warps' idle lanes and is left for later.
+//
+// The stacked form.  The 11 packaged tracks' float32 transforms, padded to
+// 952 x 947, are 39.7 MB: still within L2.  A one-map thread reads its map's
+// scalars as warp-uniform values; a stacked thread holds its own map's in
+// registers, 37 a thread unbounded (75 % occupancy).  So the stacked kernels
+// are kernels of their own, the float ones held to 8 blocks a SM (32
+// registers, 32 spill bytes: 1.17-1.18 ms against the one-map 1.09-1.10 ms at
+// 16384 x 2 x 1080, PERF.md); the one-map kernels take no map index and keep
+// 32 registers and full occupancy.
 
 #include <cuda_runtime.h>
 
@@ -47,6 +62,13 @@
 namespace {
 
 constexpr int THREADS = 256;
+// blocks a SM the stacked kernels must fit: for float all 2048 threads a SM
+// holds, as the one-map kernels reach; double is left free, as its one-map
+// kernels are (held, it spilled 216-240 bytes)
+template <typename T>
+constexpr int stacked_min_blocks() {
+  return sizeof(T) == sizeof(float) ? 8 : 1;
+}
 
 template <typename T>
 struct Map {
@@ -56,19 +78,22 @@ struct Map {
   int full_h, full_w;
 };
 
+// map mi of the stack (0 for one map): its scalars, and its distance
+// transform at mi * full_h * full_w, an offset in size_t; the rays of one
+// car share a map, so these reads hit the cache
 template <typename T>
 __device__ __forceinline__ Map<T> load_map(const T* dt, const T* ox, const T* oy,
                                            const T* oc, const T* os, const T* res,
                                            const int* height, const int* width,
-                                           int full_h, int full_w) {
+                                           int full_h, int full_w, int mi) {
   Map<T> m;
-  m.dt = dt;
-  m.ox = *ox;
-  m.oy = *oy;
-  m.oc = *oc;
-  m.os = *os;
-  m.res = *res;
-  const int h = *height, w = *width;
+  m.dt = dt + (size_t)mi * (size_t)full_h * (size_t)full_w;
+  m.ox = ox[mi];
+  m.oy = oy[mi];
+  m.oc = oc[mi];
+  m.os = os[mi];
+  m.res = res[mi];
+  const int h = height[mi], w = width[mi];
   m.w_m = (T)w * m.res;
   m.h_m = (T)h * m.res;
   m.last_r = h - 1;
@@ -139,6 +164,48 @@ __device__ __forceinline__ int theta_index(double th, int b, double half_fov,
   return (int)floor_mod(ti, td);
 }
 
+// the thread of ray i of the rays form; STACKED reads its map index
+template <typename T, bool STACKED>
+__device__ __forceinline__ void rays_thread(const T* __restrict__ x, const T* __restrict__ y,
+                                            const T* __restrict__ c, const T* __restrict__ s,
+                                            int64_t n, const int* __restrict__ midx,
+                                            const T* dt, const T* ox, const T* oy,
+                                            const T* oc, const T* os, const T* res,
+                                            const int* height, const int* width, int full_h,
+                                            int full_w, T eps, T max_range, int iters,
+                                            T* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int mi = STACKED ? __ldg(midx + i) : 0;
+  const Map<T> m = load_map(dt, ox, oy, oc, os, res, height, width, full_h, full_w, mi);
+  out[i] = march_ray(x[i], y[i], c[i], s[i], m, eps, max_range, iters);
+}
+
+// the thread of beam i % beams of pose row i / beams of the beams form
+template <typename T, bool STACKED>
+__device__ __forceinline__ void beams_thread(const T* __restrict__ pose,
+                                             const T* __restrict__ cos_tab,
+                                             const T* __restrict__ sin_tab, int64_t rows,
+                                             int beams, T td, T half_fov, T bins_per_rad,
+                                             double inc, const int* __restrict__ midx,
+                                             const T* dt, const T* ox, const T* oy,
+                                             const T* oc, const T* os, const T* res,
+                                             const int* height, const int* width,
+                                             int full_h, int full_w, T eps, T max_range,
+                                             int iters, T* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= rows * beams) return;
+  const int64_t k = i / beams;
+  const int b = (int)(i - k * beams);
+  const int mi = STACKED ? __ldg(midx + k) : 0;
+  const Map<T> m = load_map(dt, ox, oy, oc, os, res, height, width, full_h, full_w, mi);
+  const T px = __ldg(pose + 3 * k), py = __ldg(pose + 3 * k + 1);
+  const int t = theta_index(__ldg(pose + 3 * k + 2), b, half_fov, bins_per_rad, inc, td);
+  out[i] = march_ray(px, py, __ldg(cos_tab + t), __ldg(sin_tab + t), m, eps, max_range,
+                     iters);
+}
+
+// one map: the map's scalars are the same for every thread
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     march_rays_kernel(const T* __restrict__ x, const T* __restrict__ y,
@@ -146,10 +213,8 @@ __global__ void __launch_bounds__(THREADS)
                       const T* dt, const T* ox, const T* oy, const T* oc, const T* os,
                       const T* res, const int* height, const int* width, int full_h,
                       int full_w, T eps, T max_range, int iters, T* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const Map<T> m = load_map(dt, ox, oy, oc, os, res, height, width, full_h, full_w);
-  out[i] = march_ray(x[i], y[i], c[i], s[i], m, eps, max_range, iters);
+  rays_thread<T, false>(x, y, c, s, n, nullptr, dt, ox, oy, oc, os, res, height, width,
+                        full_h, full_w, eps, max_range, iters, out);
 }
 
 template <typename T>
@@ -160,15 +225,38 @@ __global__ void __launch_bounds__(THREADS)
                        const T* oy, const T* oc, const T* os, const T* res,
                        const int* height, const int* width, int full_h, int full_w, T eps,
                        T max_range, int iters, T* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= rows * beams) return;
-  const int64_t k = i / beams;
-  const int b = (int)(i - k * beams);
-  const Map<T> m = load_map(dt, ox, oy, oc, os, res, height, width, full_h, full_w);
-  const T px = __ldg(pose + 3 * k), py = __ldg(pose + 3 * k + 1);
-  const int t = theta_index(__ldg(pose + 3 * k + 2), b, half_fov, bins_per_rad, inc, td);
-  out[i] = march_ray(px, py, __ldg(cos_tab + t), __ldg(sin_tab + t), m, eps, max_range,
-                     iters);
+  beams_thread<T, false>(pose, cos_tab, sin_tab, rows, beams, td, half_fov, bins_per_rad,
+                         inc, nullptr, dt, ox, oy, oc, os, res, height, width, full_h,
+                         full_w, eps, max_range, iters, out);
+}
+
+// a stack of maps: each thread keeps its own map's scalars, which takes
+// registers the one-map form does not need; held to stacked_min_blocks
+template <typename T>
+__global__ void __launch_bounds__(THREADS, stacked_min_blocks<T>())
+    march_rays_stacked_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                              const T* __restrict__ c, const T* __restrict__ s, int64_t n,
+                              const int* __restrict__ midx, const T* dt, const T* ox,
+                              const T* oy, const T* oc, const T* os, const T* res,
+                              const int* height, const int* width, int full_h, int full_w,
+                              T eps, T max_range, int iters, T* __restrict__ out) {
+  rays_thread<T, true>(x, y, c, s, n, midx, dt, ox, oy, oc, os, res, height, width, full_h,
+                       full_w, eps, max_range, iters, out);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, stacked_min_blocks<T>())
+    march_beams_stacked_kernel(const T* __restrict__ pose, const T* __restrict__ cos_tab,
+                               const T* __restrict__ sin_tab, int64_t rows, int beams,
+                               T td, T half_fov, T bins_per_rad, double inc,
+                               const int* __restrict__ midx, const T* dt, const T* ox,
+                               const T* oy, const T* oc, const T* os, const T* res,
+                               const int* height, const int* width, int full_h,
+                               int full_w, T eps, T max_range, int iters,
+                               T* __restrict__ out) {
+  beams_thread<T, true>(pose, cos_tab, sin_tab, rows, beams, td, half_fov, bins_per_rad,
+                        inc, midx, dt, ox, oy, oc, os, res, height, width, full_h, full_w,
+                        eps, max_range, iters, out);
 }
 
 // a 1-D grid of one thread a ray; 0 where the rays need more blocks than
@@ -180,78 +268,100 @@ unsigned int blocks_for(int64_t n) {
 
 template <typename T>
 int rays(const void* x, const void* y, const void* c, const void* s, int64_t n,
-         const void* dt, const void* ox, const void* oy, const void* oc, const void* os,
-         const void* res, const void* height, const void* width, int full_h, int full_w,
-         double eps, double max_range, int iters, void* out, cudaStream_t stream) {
+         const void* midx, const void* dt, const void* ox, const void* oy, const void* oc,
+         const void* os, const void* res, const void* height, const void* width,
+         int full_h, int full_w, double eps, double max_range, int iters, void* out,
+         cudaStream_t stream) {
   const unsigned int blocks = blocks_for(n);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  march_rays_kernel<T><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(c),
-      static_cast<const T*>(s), n, static_cast<const T*>(dt), static_cast<const T*>(ox),
-      static_cast<const T*>(oy), static_cast<const T*>(oc), static_cast<const T*>(os),
-      static_cast<const T*>(res), static_cast<const int*>(height),
-      static_cast<const int*>(width), full_h, full_w, (T)eps, (T)max_range, iters,
-      static_cast<T*>(out));
+  const T *x_ = static_cast<const T*>(x), *y_ = static_cast<const T*>(y);
+  const T *c_ = static_cast<const T*>(c), *s_ = static_cast<const T*>(s);
+  const T *dt_ = static_cast<const T*>(dt), *ox_ = static_cast<const T*>(ox);
+  const T *oy_ = static_cast<const T*>(oy), *oc_ = static_cast<const T*>(oc);
+  const T *os_ = static_cast<const T*>(os), *res_ = static_cast<const T*>(res);
+  const int *h_ = static_cast<const int*>(height), *w_ = static_cast<const int*>(width);
+  if (midx)
+    march_rays_stacked_kernel<T><<<blocks, THREADS, 0, stream>>>(
+        x_, y_, c_, s_, n, static_cast<const int*>(midx), dt_, ox_, oy_, oc_, os_, res_, h_,
+        w_, full_h, full_w, (T)eps, (T)max_range, iters, static_cast<T*>(out));
+  else
+    march_rays_kernel<T><<<blocks, THREADS, 0, stream>>>(
+        x_, y_, c_, s_, n, dt_, ox_, oy_, oc_, os_, res_, h_, w_, full_h, full_w, (T)eps,
+        (T)max_range, iters, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int beams_(const void* pose, const void* cos_tab, const void* sin_tab, int64_t rows,
            int beams, int theta_dis, double half_fov, double bins_per_rad, double inc,
-           const void* dt, const void* ox, const void* oy, const void* oc, const void* os,
-           const void* res, const void* height, const void* width, int full_h, int full_w,
-           double eps, double max_range, int iters, void* out, cudaStream_t stream) {
+           const void* midx, const void* dt, const void* ox, const void* oy, const void* oc,
+           const void* os, const void* res, const void* height, const void* width,
+           int full_h, int full_w, double eps, double max_range, int iters, void* out,
+           cudaStream_t stream) {
   // the float instance adds the beam offset in double, to the float32 value
   // of inc (the Python float rounded as PyTorch rounds a scalar operand)
   const double inc_t = (double)(T)inc;
   const unsigned int blocks = blocks_for(rows * beams);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  march_beams_kernel<T><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(pose), static_cast<const T*>(cos_tab),
-      static_cast<const T*>(sin_tab), rows, beams, (T)theta_dis, (T)half_fov,
-      (T)bins_per_rad, inc_t, static_cast<const T*>(dt), static_cast<const T*>(ox),
-      static_cast<const T*>(oy), static_cast<const T*>(oc), static_cast<const T*>(os),
-      static_cast<const T*>(res), static_cast<const int*>(height),
-      static_cast<const int*>(width), full_h, full_w, (T)eps, (T)max_range, iters,
-      static_cast<T*>(out));
+  const T *pose_ = static_cast<const T*>(pose), *cos_ = static_cast<const T*>(cos_tab);
+  const T *sin_ = static_cast<const T*>(sin_tab), *dt_ = static_cast<const T*>(dt);
+  const T *ox_ = static_cast<const T*>(ox), *oy_ = static_cast<const T*>(oy);
+  const T *oc_ = static_cast<const T*>(oc), *os_ = static_cast<const T*>(os);
+  const T* res_ = static_cast<const T*>(res);
+  const int *h_ = static_cast<const int*>(height), *w_ = static_cast<const int*>(width);
+  if (midx)
+    march_beams_stacked_kernel<T><<<blocks, THREADS, 0, stream>>>(
+        pose_, cos_, sin_, rows, beams, (T)theta_dis, (T)half_fov, (T)bins_per_rad, inc_t,
+        static_cast<const int*>(midx), dt_, ox_, oy_, oc_, os_, res_, h_, w_, full_h,
+        full_w, (T)eps, (T)max_range, iters, static_cast<T*>(out));
+  else
+    march_beams_kernel<T><<<blocks, THREADS, 0, stream>>>(
+        pose_, cos_, sin_, rows, beams, (T)theta_dis, (T)half_fov, (T)bins_per_rad, inc_t,
+        dt_, ox_, oy_, oc_, os_, res_, h_, w_, full_h, full_w, (T)eps, (T)max_range, iters,
+        static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The rays form: out[i] = the march of ray (x[i], y[i], c[i], s[i]), n rays;
-// is_double picks the instance.  Returns cudaGetLastError() of the launch.
+// The rays form: out[i] = the march of ray (x[i], y[i], c[i], s[i]), n rays,
+// on map midx[i] of the stack (midx null: one map); is_double picks the
+// instance.  Returns cudaGetLastError() of the launch.
 extern "C" int march_rays_launch(const void* x, const void* y, const void* c,
-                                 const void* s, int64_t n, const void* dt, const void* ox,
-                                 const void* oy, const void* oc, const void* os,
+                                 const void* s, int64_t n, const void* midx,
+                                 const void* dt, const void* ox, const void* oy,
+                                 const void* oc, const void* os,
                                  const void* res, const void* height, const void* width,
                                  int full_h, int full_w, double eps, double max_range,
                                  int iters, int is_double, void* out, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_double ? rays<double>(x, y, c, s, n, dt, ox, oy, oc, os, res, height, width,
-                                   full_h, full_w, eps, max_range, iters, out, st)
-                   : rays<float>(x, y, c, s, n, dt, ox, oy, oc, os, res, height, width,
-                                 full_h, full_w, eps, max_range, iters, out, st);
+  return is_double ? rays<double>(x, y, c, s, n, midx, dt, ox, oy, oc, os, res, height,
+                                   width, full_h, full_w, eps, max_range, iters, out, st)
+                   : rays<float>(x, y, c, s, n, midx, dt, ox, oy, oc, os, res, height,
+                                 width, full_h, full_w, eps, max_range, iters, out, st);
 }
 
 // The beams form: out[k, b] = the march of beam b of pose row k (x, y,
-// theta), rows x beams rays along the theta tables (theta_dis,).
+// theta), rows x beams rays along the theta tables (theta_dis,), on map
+// midx[k] of the stack (midx null: one map).
 extern "C" int march_beams_launch(const void* pose, const void* cos_tab,
                                   const void* sin_tab, int64_t rows, int beams,
                                   int theta_dis, double half_fov, double bins_per_rad,
-                                  double inc, const void* dt, const void* ox,
-                                  const void* oy, const void* oc, const void* os,
-                                  const void* res, const void* height, const void* width,
-                                  int full_h, int full_w, double eps, double max_range,
-                                  int iters, int is_double, void* out, void* stream) {
+                                  double inc, const void* midx, const void* dt,
+                                  const void* ox, const void* oy, const void* oc,
+                                  const void* os,
+                                  const void* res, const void* height,
+                                  const void* width, int full_h, int full_w, double eps,
+                                  double max_range, int iters, int is_double, void* out,
+                                  void* stream) {
   if (rows <= 0 || beams <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_double
              ? beams_<double>(pose, cos_tab, sin_tab, rows, beams, theta_dis, half_fov,
-                              bins_per_rad, inc, dt, ox, oy, oc, os, res, height, width,
-                              full_h, full_w, eps, max_range, iters, out, st)
+                              bins_per_rad, inc, midx, dt, ox, oy, oc, os, res, height,
+                              width, full_h, full_w, eps, max_range, iters, out, st)
              : beams_<float>(pose, cos_tab, sin_tab, rows, beams, theta_dis, half_fov,
-                             bins_per_rad, inc, dt, ox, oy, oc, os, res, height, width,
-                             full_h, full_w, eps, max_range, iters, out, st);
+                             bins_per_rad, inc, midx, dt, ox, oy, oc, os, res, height,
+                             width, full_h, full_w, eps, max_range, iters, out, st);
 }

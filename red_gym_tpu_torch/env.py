@@ -33,6 +33,15 @@ config runs the kernels on a CUDA device and their plain PyTorch twins on
 the CPU; out of scope, "auto" takes the eager code and "on" raises
 ValueError.  Every function here that takes ``device`` defaults to the
 card ("cuda") and raises without one; pass ``device="cpu"`` for the CPU.
+
+Multi-map batches (``make_multimap_params``): the params hold M maps, and
+in fast mode their textures, stacked on a leading map axis and padded to
+one shape; each env picks its map with ``EnvState.map_idx`` (E,) int32,
+which ``reset`` checks once against M.  Every scan branch takes it: the
+megakernel, the unfused epilogues and the spectral render read the flat
+(M * N, C*T) texture at rows offset by map, and the exact march reads each
+car's map of the (M, H, W) distance transforms.  The pre-scan state kernel
+covers one map, so under ``map_idx`` the eager chain runs, as in JAX.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import torch
 
 from red_gym_tpu_torch.config import (Integrator, SimConfig, VehicleParams,
                                       resolve_device)
-from red_gym_tpu_torch.maps.loader import TrackMap, load_map
+from red_gym_tpu_torch.maps.loader import TrackMap, load_map, pad_map, stack_maps
 from red_gym_tpu_torch.ops import agent_scan, collision as col
 from red_gym_tpu_torch.ops import scan as scan_ops, scan_fast, state_kernels
 
@@ -76,6 +85,8 @@ class EnvState(NamedTuple):
     start_pose: torch.Tensor   # (E, A, 3) reset poses
     start_rot: torch.Tensor    # (E, 2, 2) rotation into the ego start frame
     step_idx: torch.Tensor     # (E,) int32
+    # (E,) int32 map of each env in map-stacked params; None with one map
+    map_idx: Optional[torch.Tensor] = None
 
 
 class Observation(NamedTuple):
@@ -102,20 +113,56 @@ def make_params(cfg: SimConfig, map_yaml_path: str, map_ext: str = ".png",
     the exact scan has none) and the noise pool."""
     device = resolve_device(device)
     scan_fast.check_supported(cfg)
-    vehicle = vehicle if vehicle is not None else VehicleParams.default(
-        cfg.tdtype, device)
+    vehicle, tables = _vehicle_and_tables(cfg, vehicle, device)
     if tmap is None:
         tmap = load_map(map_yaml_path, map_ext, dtype=cfg.tdtype, device=device)
-    # the car-edge table uses width/2 and (lf+lr)/2 (base_classes.py:127-128)
-    tables = scan_ops.build_tables(
-        cfg, width=float(vehicle.width.reshape(-1)[0]),
-        length=float(vehicle.lf.reshape(-1)[0] + vehicle.lr.reshape(-1)[0]),
-        dtype=cfg.tdtype, device=device)
     rtex = None
     if cfg.scan_mode == "fast":
         rtex = scan_fast.build_range_texture(tmap, cfg)
     return EnvParams(vehicle=vehicle, tables=tables, tmap=tmap, rtex=rtex,
                      noise_pool=_make_noise_pool(cfg, device))
+
+
+def make_multimap_params(cfg: SimConfig, map_yaml_paths, map_ext: str = ".png",
+                         vehicle: Optional[VehicleParams] = None,
+                         device="cuda") -> EnvParams:
+    """EnvParams with M maps stacked on a leading map axis (JAX
+    env.make_multimap_params): every map padded to the largest extents
+    (``maps.loader.pad_map``, after its EDT) and, in fast mode, every
+    texture built on its raw map, so that its disk-cache entry is the one
+    ``make_params`` writes, then grown to the padded cell grid
+    (``ceil(pad / rt_pose_stride)``) and stacked.  Each map is loaded once.
+    Envs pick their map with ``EnvState.map_idx`` (``reset(...,
+    map_idx=...)``).  On ``device``, the card unless the caller passes
+    "cpu"."""
+    device = resolve_device(device)
+    scan_fast.check_supported(cfg)
+    vehicle, tables = _vehicle_and_tables(cfg, vehicle, device)
+    raw = [load_map(p, map_ext, dtype=cfg.tdtype, device=device)
+           for p in map_yaml_paths]
+    pad = (max(int(m.height) for m in raw), max(int(m.width) for m in raw))
+    tmap = stack_maps([pad_map(m, pad) for m in raw])
+    rtex = None
+    if cfg.scan_mode == "fast":
+        s = cfg.rt_pose_stride
+        hc_pad, wc_pad = (pad[0] + s - 1) // s, (pad[1] + s - 1) // s
+        rtex = scan_fast.stack_textures(
+            [scan_fast.pad_texture(scan_fast.build_range_texture(m, cfg),
+                                   hc_pad, wc_pad) for m in raw])
+    return EnvParams(vehicle=vehicle, tables=tables, tmap=tmap, rtex=rtex,
+                     noise_pool=_make_noise_pool(cfg, device))
+
+
+def _vehicle_and_tables(cfg: SimConfig, vehicle, device):
+    """The vehicle (the default one if None) and the lidar tables of it."""
+    vehicle = vehicle if vehicle is not None else VehicleParams.default(
+        cfg.tdtype, device)
+    # the car-edge table uses width/2 and (lf+lr)/2 (base_classes.py:127-128)
+    tables = scan_ops.build_tables(
+        cfg, width=float(vehicle.width.reshape(-1)[0]),
+        length=float(vehicle.lf.reshape(-1)[0] + vehicle.lr.reshape(-1)[0]),
+        dtype=cfg.tdtype, device=device)
+    return vehicle, tables
 
 
 def _make_noise_pool(cfg: SimConfig, device):
@@ -132,9 +179,10 @@ def _make_noise_pool(cfg: SimConfig, device):
     return pool.to(torch.bfloat16) if cfg.tdtype == torch.float32 else pool
 
 
-def init_state(cfg: SimConfig, poses) -> EnvState:
+def init_state(cfg: SimConfig, poses, map_idx=None) -> EnvState:
     """Fresh state at poses (E, A, 3) (reference RaceCar.reset + F110Env.reset
-    counters, base_classes.py:181-202, f110_env.py:317-329)."""
+    counters, base_classes.py:181-202, f110_env.py:317-329); ``map_idx``
+    (E,) is each env's map of map-stacked params, kept as int32."""
     poses = torch.as_tensor(poses, dtype=cfg.tdtype)
     e_n, a_n = poses.shape[:2]
     dev, dt = poses.device, poses.dtype
@@ -155,25 +203,51 @@ def init_state(cfg: SimConfig, poses) -> EnvState:
         toggle_list=zeros(torch.int32, a_n), lap_times=zeros(dt, a_n),
         lap_counts=zeros(torch.int32, a_n), current_time=zeros(dt),
         start_pose=poses.clone(), start_rot=start_rot,
-        step_idx=zeros(torch.int32))
+        step_idx=zeros(torch.int32),
+        map_idx=None if map_idx is None else torch.as_tensor(
+            map_idx, device=dev).to(torch.int32))
 
 
-def state_kernel_pack(cfg: SimConfig, params: EnvParams):
+def check_map_idx(params: EnvParams, map_idx) -> None:
+    """Raise ValueError unless ``map_idx`` fits ``params``: None for one
+    map, an index in [0, M) per env for M stacked maps.  Reads the indices
+    on the host, so ``reset`` runs it once and the step never does."""
+    stacked = params.tmap.dt.dim() == 3
+    if map_idx is None:
+        if stacked:
+            raise ValueError("these params hold a stack of maps: pass map_idx, "
+                             "each env's map")
+        return
+    if not stacked:
+        raise ValueError("map_idx needs map-stacked params "
+                         "(env.make_multimap_params)")
+    m_n = params.tmap.dt.shape[0]
+    idx = torch.as_tensor(map_idx)
+    if idx.dtype.is_floating_point or idx.dim() != 1:
+        raise ValueError(f"map_idx must be (E,) integers, got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= m_n):
+        raise ValueError(f"map_idx must lie in [0, {m_n}), got "
+                         f"[{int(idx.min())}, {int(idx.max())}]")
+
+
+def state_kernel_pack(cfg: SimConfig, params: EnvParams, midx=None):
     """Resolution of cfg.state_kernel for a step: the state kernel's scalar
     pack (state_kernels.step_pack, cached while the params do not change)
     where the kernel runs, None where the eager chain runs.  "off" never,
     "auto" iff the config and params are in the kernel's scope
-    (state_kernels.supported), "on" always, raising ValueError out of
+    (state_kernels.supported) and the step has one map (``midx`` None, as
+    JAX's _use_state_kernel), "on" always, raising ValueError out of
     scope."""
     if cfg.state_kernel == "off":
         return None
-    pack = state_kernels.step_pack(cfg, params)
+    pack = None if midx is not None else state_kernels.step_pack(cfg, params)
     if pack is None and cfg.state_kernel == "on":
         raise ValueError(
             "state_kernel='on' needs the kernel's scope: scan_mode='fast', "
             "rt_spatial='nearest1', dtype='float32', steer_delay=2, the "
-            "default PID, the megakernel resolving on and scalar vehicle "
-            "params (state_kernels.supported)")
+            "default PID, the megakernel resolving on, one map (no map_idx) "
+            "and scalar vehicle params (state_kernels.supported)")
     return pack
 
 
@@ -207,9 +281,11 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     env.  actions (E, A, 2) = [desired steer, desired speed]."""
     p = params.vehicle
     actions = torch.as_tensor(actions, dtype=cfg.tdtype)
+    # each car's map of map-stacked params, (E, 1) against the (E, A) cars
+    midx = None if state.map_idx is None else state.map_idx[:, None]
 
     pregeo = None
-    pack = state_kernel_pack(cfg, params)
+    pack = state_kernel_pack(cfg, params, midx)
     if pack is not None:
         # one launch for steer delay, PID, integration, yaw wrap and the
         # megakernel's per-row operands; its scalar pack is that of these
@@ -238,14 +314,15 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     if mega or scan_fast.use_fused_ttc(cfg):
         scans, hit01 = scan_fast.trace_fast_mxu(
             poses, params.tables, params.tmap, params.rtex, cfg,
-            fused_ttc=(noise, vel), opp=opp, pool_off=pool_off, pregeo=pregeo)
+            fused_ttc=(noise, vel), opp=opp, pool_off=pool_off, pregeo=pregeo,
+            midx=midx)
         ttc_hit = (hit01 > 0) & (vel != 0.0)
     else:
         if cfg.scan_mode == "exact":
-            scans = scan_ops.trace(poses, params.tables, params.tmap, cfg)
+            scans = scan_ops.trace(poses, params.tables, params.tmap, cfg, midx)
         else:
             scans = scan_fast.trace_fast_mxu(poses, params.tables, params.tmap,
-                                             params.rtex, cfg)
+                                             params.rtex, cfg, midx=midx)
         if cfg.scan_noise_std > 0:
             scans = scans + noise.to(scans.dtype)[:, None, :]
         ttc_hit = agent_scan.check_ttc(scans, vel, params.tables, cfg.ttc_thresh)
@@ -317,10 +394,19 @@ def step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     return state, _build_obs(state, scans), reward, done, {"checkpoint_done": finished}
 
 
-def reset(cfg: SimConfig, params: EnvParams, poses, gen):
+def reset(cfg: SimConfig, params: EnvParams, poses, gen, map_idx=None):
     """Reset to poses (E, A, 3) and make the first observation by stepping
-    once with zero actions, as the reference does (f110_env.py:304-347)."""
-    state = init_state(cfg, poses)
+    once with zero actions, as the reference does (f110_env.py:304-347).
+    ``map_idx`` (E,) puts each env on its map of map-stacked params; it is
+    checked here (``check_map_idx``), once."""
+    check_map_idx(params, map_idx)
+    return reset_unchecked(cfg, params, poses, gen, map_idx)
+
+
+def reset_unchecked(cfg: SimConfig, params: EnvParams, poses, gen, map_idx=None):
+    """``reset`` without the host-side check of ``map_idx``: for callers
+    whose indices are known to be in range (a rollout's auto-reset)."""
+    state = init_state(cfg, poses, map_idx)
     actions = torch.zeros(state.x.shape[:2] + (2,), dtype=cfg.tdtype,
                           device=state.x.device)
     return step(cfg, params, state, actions, gen)

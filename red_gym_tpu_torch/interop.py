@@ -38,19 +38,16 @@ def params_from_numpy(cfg: SimConfig, vehicle: Mapping, tables: Mapping,
 
     ``rtex`` needs rt, valid, hc, wc, cell, fmat, gmat and smat; the port's
     per-step constants (fmat_sw, shift1, c_frac) are derived here.  It is
-    None for the exact scan, whose JAX params carry no texture.
+    None for the exact scan, whose JAX params carry no texture.  Map-stacked
+    params (JAX ``make_multimap_params``) come across as they are: ``tmap``
+    leaves with a leading map axis, and a stacked ``rtex`` (rt (M, N, C*T),
+    valid (M, N), hc, wc, cell (M,)).
     ``noise_pool`` serves noise_mode "pool" and "pool_rot" alike.  ``tables.noise_pool_ext``, the JAX package's
     wrap-extended pool for "pool_rot", is left out: the port's megakernel
     indexes the pool modulo its row count and needs no extended copy."""
     device = resolve_device(device)
     t = lambda a: to_tensor(a, device)  # noqa: E731
-    rtex_t = None
-    if rtex is not None:
-        rt = {k: t(rtex[k]) for k in ("rt", "valid", "hc", "wc", "cell", "fmat",
-                                      "gmat", "smat")}
-        consts = scan_fast.texture_constants(cfg, rt["fmat"].dtype, device)
-        rt.update({k: consts[k] for k in ("fmat_sw", "shift1", "c_frac")})
-        rtex_t = scan_fast.RangeTexture(**rt)
+    rtex_t = None if rtex is None else texture_from_numpy(cfg, rtex, device)
     veh = VehicleParams(**{k: t(vehicle[k]) for k in VehicleParams._fields})
     tm = TrackMap(**{k: t(tmap[k]) for k in TrackMap._fields})
     return EnvParams(
@@ -62,8 +59,27 @@ def params_from_numpy(cfg: SimConfig, vehicle: Mapping, tables: Mapping,
         noise_pool=None if noise_pool is None else t(noise_pool))
 
 
+def texture_from_numpy(cfg: SimConfig, rtex: Mapping,
+                       device="cuda") -> scan_fast.RangeTexture:
+    """RangeTexture from the numpy leaves of a JAX ``RangeTexture`` (one
+    map's or a stack's): rt, valid, hc, wc, cell, fmat, gmat and smat, plus
+    the port's per-step constants fmat_sw, shift1 and c_frac, derived
+    here."""
+    device = resolve_device(device)
+    rt = {k: to_tensor(rtex[k], device) for k in ("rt", "valid", "hc", "wc", "cell",
+                                                  "fmat", "gmat", "smat")}
+    consts = scan_fast.texture_constants(cfg, rt["fmat"].dtype, device)
+    rt.update({k: consts[k] for k in ("fmat_sw", "shift1", "c_frac")})
+    return scan_fast.RangeTexture(**rt)
+
+
 def state_from_numpy(state: Mapping, device="cuda") -> EnvState:
     """EnvState from the numpy leaves of a batched JAX ``EnvState`` (leading
-    env axis); the JAX PRNG key and map index are not carried over."""
+    env axis), ``map_idx`` (as int32) when it is there; the JAX PRNG key is
+    not carried over."""
     device = resolve_device(device)
-    return EnvState(**{k: to_tensor(state[k], device) for k in EnvState._fields})
+    fields = {k: to_tensor(state[k], device) for k in EnvState._fields
+              if state.get(k) is not None}
+    if "map_idx" in fields:
+        fields["map_idx"] = fields["map_idx"].to(torch.int32)
+    return EnvState(**fields)

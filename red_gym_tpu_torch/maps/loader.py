@@ -12,7 +12,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -22,7 +22,12 @@ from red_gym_tpu_torch.config import resolve_device
 
 
 class TrackMap(NamedTuple):
-    """Device-resident map data; every field is a tensor (0-d for scalars)."""
+    """Device-resident map data; every field is a tensor (0-d for scalars).
+
+    ``height``/``width`` are the true extents, which may be smaller than
+    ``dt.shape`` for a padded map.  A stack of M maps (:func:`stack_maps`)
+    carries every field with a leading map axis: dt (M, H, W), the scalars
+    (M,)."""
 
     dt: torch.Tensor          # (H, W) distance to the nearest obstacle [m]
     occupancy: torch.Tensor   # (H, W) binarized map (0 obstacle, 255 free)
@@ -128,10 +133,12 @@ def load_map_image(image_path: str) -> np.ndarray:
 
 
 def load_map(map_yaml_path: str, map_ext: str = ".png",
-             dtype=torch.float32, device="cuda") -> TrackMap:
+             dtype=torch.float32, device="cuda",
+             pad_to: tuple[int, int] | None = None) -> TrackMap:
     """Load yaml + image, compute the EDT on the host, return a TrackMap
     with its tensors on ``device`` (the card unless the caller passes
-    "cpu")."""
+    "cpu").  ``pad_to`` = (H, W) pads the map after the EDT
+    (:func:`pad_map`)."""
     device = resolve_device(device)
     meta = read_map_yaml(map_yaml_path)
     resolution = float(meta["resolution"])
@@ -143,8 +150,33 @@ def load_map(map_yaml_path: str, map_ext: str = ".png",
     def t(v, dt_=dtype):
         return torch.as_tensor(v, dtype=dt_, device=device)
 
-    return TrackMap(dt=t(dt), occupancy=t(occ),
+    tmap = TrackMap(dt=t(dt), occupancy=t(occ),
                     orig_x=t(origin[0]), orig_y=t(origin[1]),
                     orig_c=t(np.cos(origin[2])), orig_s=t(np.sin(origin[2])),
                     resolution=t(resolution),
                     height=t(h, torch.int32), width=t(w, torch.int32))
+    return tmap if pad_to is None else pad_map(tmap, pad_to)
+
+
+def pad_map(tmap: TrackMap, pad_to: tuple[int, int]) -> TrackMap:
+    """A one-map TrackMap with dt and occupancy zero-padded at the far row
+    and column ends to ``pad_to`` = (H, W), for stacking maps of different
+    extents (JAX ``load_map(pad_to=...)``).  Zero is "at an obstacle", so a
+    ray entering the padding stops; the true height/width stay, so the
+    out-of-map test is unchanged.  Padding after the EDT leaves every cell
+    of the map as it was.  Raises ValueError when ``pad_to`` is smaller
+    than the map."""
+    h, w = tmap.dt.shape
+    ph, pw = pad_to
+    if ph < h or pw < w:
+        raise ValueError(f"pad_to {tuple(pad_to)} smaller than map {(h, w)}")
+    pad = (0, pw - w, 0, ph - h)
+    return tmap._replace(dt=torch.nn.functional.pad(tmap.dt, pad),
+                         occupancy=torch.nn.functional.pad(tmap.occupancy, pad))
+
+
+def stack_maps(maps: Sequence[TrackMap]) -> TrackMap:
+    """Stack maps of one padded shape along a leading map axis (JAX
+    ``stack_maps``): dt (M, H, W), every scalar (M,)."""
+    return TrackMap(*[torch.stack([getattr(m, f) for m in maps])
+                      for f in TrackMap._fields])

@@ -8,7 +8,9 @@ exact scan, ``scan_mode="exact"`` (SimConfig's default), at every step
 (:func:`march`, :func:`trace_angles`).  On a CUDA device both run the march
 kernel of ``ops/march_kernels.py``, on the CPU its plain twin; every ray
 runs the reference's arithmetic, so in float64 the ranges match the JAX
-march.
+march.  :func:`march` and :func:`trace` take a stack of maps
+(``maps.loader.stack_maps``) with a map index ``midx`` per ray or per pose
+(multi-map batches); the texture build marches one raw map.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from red_gym_tpu_torch.maps.loader import TrackMap
 from red_gym_tpu_torch.ops import march_kernels
 # the march's cell lookup and theta indices live beside its kernel; they are
 # this module's names in the JAX package
-from red_gym_tpu_torch.ops.march_kernels import beam_theta_indices, dt_lookup  # noqa: F401
+from red_gym_tpu_torch.ops.march_kernels import (  # noqa: F401
+    beam_theta_indices, dt_lookup, map_scalars)
 
 
 class ScanTables(NamedTuple):
@@ -77,22 +80,25 @@ def build_tables(cfg: SimConfig, width: float, length: float, dtype=None,
                       side_distances=t(side_distances))
 
 
-def march(x, y, c, s, tmap: TrackMap, cfg: SimConfig):
+def march(x, y, c, s, tmap: TrackMap, cfg: SimConfig, midx=None):
     """Sphere march from points (x, y) along directions (c, s), all of one
     shape (reference trace_ray, laser_models.py:107-146): step the full safe
     distance until within eps of an obstacle or beyond max_range, then
-    clamp to max_range; ``cfg.march_iters > 0`` caps the iterations.  The
-    march kernel on a CUDA device, its twin on the CPU
+    clamp to max_range; ``cfg.march_iters > 0`` caps the iterations.
+    ``midx`` (int32, x's shape) marches each ray on its map of a stack.
+    The march kernel on a CUDA device, its twin on the CPU
     (``march_kernels.march``)."""
-    return march_kernels.march(x, y, c, s, tmap, cfg)
+    return march_kernels.march(x, y, c, s, tmap, cfg, midx)
 
 
-def trace(pose, tables: ScanTables, tmap: TrackMap, cfg: SimConfig):
+def trace(pose, tables: ScanTables, tmap: TrackMap, cfg: SimConfig, midx=None):
     """Noiseless scan of pose(s) (..., 3) -> (..., num_beams) along the
     theta-discretized beam table (reference get_scan, laser_models.py:
-    149-186): the march kernel's beams form on a CUDA device, its twin on
-    the CPU (``march_kernels.march_beams``)."""
-    return march_kernels.march_beams(pose, tables.cosines, tables.sines, tmap, cfg)
+    149-186), with ``midx`` (...) int32 each pose on its map of a stack:
+    the march kernel's beams form on a CUDA device, its twin on the CPU
+    (``march_kernels.march_beams``)."""
+    return march_kernels.march_beams(pose, tables.cosines, tables.sines, tmap, cfg,
+                                     midx)
 
 
 def trace_angles(origins, angles, tmap: TrackMap, cfg: SimConfig):

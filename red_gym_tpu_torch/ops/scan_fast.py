@@ -26,6 +26,13 @@ branches:
   the prep chain with the real-valued roll, then the spectral render of
   ``ops/spectral_kernels.py`` with noise and iTTC, or the plain product.
 
+Multi-map batches: each map's texture is built on its raw map, then
+grown to a common cell grid (``pad_texture``) and stacked
+(``stack_textures``: rt (M, N, C*T)); a step takes one map index per car
+(``midx``), reads that map's origin and cell size, and offsets its texture
+rows by ``midx * N`` into the flat (M * N, C*T) view, which every branch
+above reads as it reads one map's texture.
+
 The float64 fast scan and ``scan_backend="xla"`` raise
 ``NotImplementedError``; the exact scan (``scan_mode="exact"``) is
 ``ops/scan.py``'s and builds no texture.
@@ -61,7 +68,10 @@ class RangeTexture(NamedTuple):
 
     ``rt`` rows are [R | e w | gx gy]: ranges, the sub-bin visibility edge
     position e and transition width w of each bin pair, and dR/dpose.  An
-    occupied or out-of-map cell has an all-zero row and valid=False."""
+    occupied or out-of-map cell has an all-zero row and valid=False.  A
+    stack of M maps' textures (:func:`stack_textures`) carries rt (M, N,
+    C * T), valid (M, N) and hc, wc, cell (M,); the constant matrices stay
+    one copy."""
 
     rt: torch.Tensor       # (Hc * Wc, C * T); storage may be bfloat16
     valid: torch.Tensor    # (Hc * Wc,) bool free-space mask
@@ -254,7 +264,12 @@ def build_range_texture(tmap: TrackMap, cfg: SimConfig) -> RangeTexture:
     package's dense recipe, which the compact one is held against: every
     bin localized, then the edge bins kept; the localization is elementwise,
     so both give the same texture.  The result is cached on disk by content
-    hash (_texture_cache_path)."""
+    hash (_texture_cache_path).  ``tmap`` is one map: a stack's textures
+    are built on each raw map, then padded and stacked (:func:`pad_texture`,
+    :func:`stack_textures`)."""
+    if tmap.dt.dim() != 2:
+        raise ValueError("build_range_texture takes one (H, W) map: build each "
+                         "map's texture, then pad_texture and stack_textures")
     stride, t_bins = cfg.rt_pose_stride, cfg.rt_theta_bins
     h, w = tmap.dt.shape
     hc, wc = (h + stride - 1) // stride, (w + stride - 1) // stride
@@ -415,17 +430,81 @@ def build_range_texture(tmap: TrackMap, cfg: SimConfig) -> RangeTexture:
         **texture_constants(cfg, dtype, device))
 
 
+def pad_texture(rtex: RangeTexture, hc_new: int, wc_new: int) -> RangeTexture:
+    """A one-map texture with its cell grid grown to (hc_new, wc_new) (JAX
+    scan_fast.pad_texture): the new cells get all-zero rows and
+    valid=False, as the build gives occupied and out-of-map cells, and
+    hc/wc become the padded extents.  The old cells keep their rows and
+    their row-major (r, c) position, so a map's scans are the same alone
+    and stacked.  Raises ValueError when the target is smaller."""
+    hc, wc = int(rtex.hc), int(rtex.wc)
+    if (hc_new, wc_new) == (hc, wc):
+        return rtex
+    if hc_new < hc or wc_new < wc:
+        raise ValueError(f"pad target {(hc_new, wc_new)} smaller than texture "
+                         f"grid {(hc, wc)}")
+    ct = rtex.rt.shape[-1]
+    rt = rtex.rt.new_zeros((hc_new, wc_new, ct))
+    rt[:hc, :wc] = rtex.rt.reshape(hc, wc, ct)
+    valid = rtex.valid.new_zeros((hc_new, wc_new))
+    valid[:hc, :wc] = rtex.valid.reshape(hc, wc)
+    return rtex._replace(rt=rt.reshape(hc_new * wc_new, ct),
+                         valid=valid.reshape(hc_new * wc_new),
+                         hc=torch.full_like(rtex.hc, hc_new),
+                         wc=torch.full_like(rtex.wc, wc_new))
+
+
+def stack_textures(rtexs) -> RangeTexture:
+    """Stack textures of one cell grid along a leading map axis (JAX
+    scan_fast.stack_textures): rt (M, N, C*T), valid (M, N), hc, wc, cell
+    (M,); the constant matrices, the same for every map of a config, are
+    the first texture's."""
+    first = rtexs[0]
+    stacked = {f: torch.stack([getattr(r, f) for r in rtexs])
+               for f in ("rt", "valid", "hc", "wc", "cell")}
+    return first._replace(**stacked)
+
+
+def _check_midx(rtex: RangeTexture, midx) -> None:
+    """A stacked texture needs an int32 map index per car, one map's takes
+    none."""
+    if (rtex.rt.dim() == 3) != (midx is not None):
+        raise ValueError("a stacked range texture needs a map index (midx), "
+                         "and one map's texture takes none")
+    if midx is not None and midx.dtype != torch.int32:
+        raise ValueError(f"midx must be int32, got {midx.dtype}")
+
+
+def _flat_rt(rtex: RangeTexture) -> torch.Tensor:
+    """The texture rows as one (rows, C*T) table: a stack's (M, N, C*T) is
+    viewed as (M * N, C*T), where map m's row r is row m * N + r."""
+    return rtex.rt.reshape(-1, rtex.rt.shape[-1])
+
+
 def _cells_and_theta(pose, tables, tmap: TrackMap, rtex: RangeTexture,
-                     cfg: SimConfig):
+                     cfg: SimConfig, midx=None):
     """Texture cells of each pose (JAX scan_fast._cells_and_theta): (rows,
     wgt, dx, dy), each (..., K), with K = 1 rounded cell (nearest1) or the
     4 floor cells (bilinear, nearest) in the order (r0, c0), (r0, c0 + 1),
     (r0 + 1, c0), (r0 + 1, c0 + 1).  wgt is 1 (nearest1) or the bilinear
     weight, times the in-bounds flag; rows are clamped into the grid; dx/dy
-    is the pose's world offset from each cell centre."""
+    is the pose's world offset from each cell centre.  With ``midx`` (...)
+    and a stacked texture each pose reads its map's origin, cell size and
+    grid, and its rows index the flat (M * N, C*T) table."""
     dtype = rtex.fmat.dtype
-    oc, osn, ox, oy = tmap.orig_c, tmap.orig_s, tmap.orig_x, tmap.orig_y
-    cell, hc, wc = rtex.cell, rtex.hc, rtex.wc
+    if midx is None:
+        oc, osn, ox, oy = tmap.orig_c, tmap.orig_s, tmap.orig_x, tmap.orig_y
+        cell, hc, wc = rtex.cell, rtex.hc, rtex.wc
+
+        def per_cell(v):
+            return v
+    else:
+        oc, osn, ox, oy = (getattr(tmap, f)[midx]
+                           for f in ("orig_c", "orig_s", "orig_x", "orig_y"))
+        cell, hc, wc = rtex.cell[midx], rtex.hc[midx], rtex.wc[midx]
+
+        def per_cell(v):   # a pose's map scalar against its (..., K) cells
+            return v[..., None]
     x_t = pose[..., 0] - ox
     y_t = pose[..., 1] - oy
     gx = (x_t * oc + y_t * osn) / cell - 0.5
@@ -443,9 +522,13 @@ def _cells_and_theta(pose, tables, tmap: TrackMap, rtex: RangeTexture,
         cc = torch.stack([c0, c0 + 1, c0, c0 + 1], dim=-1)
         wgt = torch.stack([(1 - fy) * (1 - fx), (1 - fy) * fx,
                            fy * (1 - fx), fy * fx], dim=-1).to(dtype)
+    hc, wc, cell = per_cell(hc), per_cell(wc), per_cell(cell)
+    oc, osn, ox, oy = per_cell(oc), per_cell(osn), per_cell(ox), per_cell(oy)
     in_bounds = (rr >= 0) & (rr < hc) & (cc >= 0) & (cc < wc)
     rows = (torch.minimum(torch.clamp(rr, min=0), hc - 1) * wc
             + torch.minimum(torch.clamp(cc, min=0), wc - 1))
+    if midx is not None:
+        rows = rows + per_cell(midx) * rtex.rt.shape[-2]
     cxr = (rr.to(dtype) + 0.5) * cell
     cxc = (cc.to(dtype) + 0.5) * cell
     cwx = cxc * oc - cxr * osn + ox
@@ -455,21 +538,25 @@ def _cells_and_theta(pose, tables, tmap: TrackMap, rtex: RangeTexture,
     return rows, wgt * in_bounds.to(dtype), dx.to(dtype), dy.to(dtype)
 
 
-def _cell_size(rtex: RangeTexture, dtype) -> torch.Tensor:
-    """Texture cell size [m] (JAX scan_fast._cell_size, one map)."""
-    return rtex.cell.to(dtype)
+def _cell_size(rtex: RangeTexture, dtype, midx=None) -> torch.Tensor:
+    """Texture cell size [m] (JAX scan_fast._cell_size): one map's, or with
+    ``midx`` (...) each pose's map's as (..., 1), against its bins."""
+    if midx is None:
+        return rtex.cell.to(dtype)
+    return rtex.cell[midx].to(dtype)[..., None]
 
 
 def row_scalars(pose, tmap: TrackMap, rtex: RangeTexture, cfg: SimConfig,
-                vel):
+                vel, midx=None):
     """The megakernel's per-row operands of poses (..., 3) and speeds (...):
-    the texture row (...) int32 of the nearest1 cell and the packed scalars
-    (..., 8) [dx, dy, f_s, i_f, inb, vel, 0, 0], where dx/dy is the offset
-    from the cell centre and s = theta * T / 2pi = i_f + f_s."""
+    the texture row (...) int32 of the nearest1 cell (of the flat table of
+    a stack, with ``midx``) and the packed scalars (..., 8) [dx, dy, f_s,
+    i_f, inb, vel, 0, 0], where dx/dy is the offset from the cell centre and
+    s = theta * T / 2pi = i_f + f_s."""
     t_bins = cfg.rt_theta_bins
     dtype = rtex.fmat.dtype
     two_pi = 2.0 * math.pi
-    rows, inb, dx, dy = _cells_and_theta(pose, None, tmap, rtex, cfg)
+    rows, inb, dx, dy = _cells_and_theta(pose, None, tmap, rtex, cfg, midx)
     s = torch.remainder(pose[..., 2], two_pi) * (t_bins / two_pi)
     i_s = torch.floor(s)
     f_s = (s - i_s).to(dtype)
@@ -484,19 +571,26 @@ def row_scalars(pose, tmap: TrackMap, rtex: RangeTexture, cfg: SimConfig,
 
 def mega_operands(pose, tables, tmap: TrackMap, rtex: RangeTexture,
                   cfg: SimConfig, noise, vel, opp=None, pool_off=None,
-                  pregeo=None) -> dict:
+                  pregeo=None, midx=None) -> dict:
     """Keyword arguments of ``scan_kernels.mega_edge_ttc`` for poses
     (E, A, 3) and speeds (E, A), flattened to K = E * A rows.
 
     ``noise`` is the (E, B) slab, or with ``pool_off`` (1,) int32 the
     (rows, B) pool of ``noise_mode="pool_rot"``; ``opp`` (E, A, 10(A-1))
     adds the opponent cast; ``pregeo`` = (rows, scal) from the state kernel
-    replaces the per-row prep (``row_scalars``)."""
+    replaces the per-row prep (``row_scalars``).  ``midx`` (broadcast to
+    (E, A)) puts each car on its map of a stacked texture: the kernel reads
+    the flat (M * N, C*T) view, at rows offset by map."""
+    _check_midx(rtex, midx)
+    if midx is not None:
+        if pregeo is not None:
+            raise ValueError("pregeo (the state kernel) covers one map only")
+        midx = torch.broadcast_to(midx, pose.shape[:-1])
     if pregeo is None:
-        pregeo = row_scalars(pose, tmap, rtex, cfg, vel)
+        pregeo = row_scalars(pose, tmap, rtex, cfg, vel, midx)
     rows, scal = pregeo
     ops = dict(
-        rt=rtex.rt, rows=rows.reshape(-1), scal=scal.reshape(-1, 8),
+        rt=_flat_rt(rtex), rows=rows.reshape(-1), scal=scal.reshape(-1, 8),
         fmat=rtex.fmat, fmat_sw=rtex.fmat_sw, shift1=rtex.shift1,
         gmat=rtex.gmat, c_frac=rtex.c_frac, noise=noise,
         cosines=tables.beam_cosines, side_dist=tables.side_distances,
@@ -519,7 +613,7 @@ class Spectra(NamedTuple):
 
 
 def rolled_spectra(pose, tmap: TrackMap, rtex: RangeTexture,
-                   cfg: SimConfig) -> Spectra:
+                   cfg: SimConfig, midx=None) -> Spectra:
     """The torch prep chain of the unfused branch (JAX trace_fast_mxu
     :971-1108) for poses (..., 3): gather the cells' texture rows, drop
     occupied cells (column 0 is 0), pick the best cell ("nearest"), fold
@@ -531,13 +625,17 @@ def rolled_spectra(pose, tmap: TrackMap, rtex: RangeTexture,
     ``scan_interp="spectral"`` (JAX :1060-1071, occlusion "off", so no e/w
     rows) the roll is by the real-valued theta coordinate s, with phases
     ``mod(f * s, T)``.  float32 matrix products, so on a CUDA device TF32
-    must be off."""
+    must be off.  ``midx`` (broadcast to pose's (...)) reads each pose's
+    map of a stacked texture, with its own cell size in the snap."""
     t_bins = cfg.rt_theta_bins
     f_bins = t_bins // 2 + 1
     dtype = rtex.fmat.dtype
     two_pi = 2.0 * math.pi
     eff_occ = cfg.rt_eff_occlusion
-    rows, wgt, dx, dy = _cells_and_theta(pose, None, tmap, rtex, cfg)
+    _check_midx(rtex, midx)
+    if midx is not None:
+        midx = torch.broadcast_to(midx, pose.shape[:-1])
+    rows, wgt, dx, dy = _cells_and_theta(pose, None, tmap, rtex, cfg, midx)
 
     s = torch.remainder(pose[..., 2], two_pi) * (t_bins / two_pi)
     i_s = torch.floor(s)
@@ -546,7 +644,7 @@ def rolled_spectra(pose, tmap: TrackMap, rtex: RangeTexture,
     # s can round up to exactly T (theta just under 2pi): wrap, don't clamp
     i_i = torch.where(i_i >= t_bins, i_i - t_bins, i_i)
 
-    rows_v = rtex.rt[rows.long()]                            # (..., K, C*T)
+    rows_v = _flat_rt(rtex)[rows.long()]                     # (..., K, C*T)
     rr = rows_v[..., :t_bins]
     # valid rows are >= 1 mm everywhere (build-time floor), occupied cells
     # all zero: column 0 alone carries validity
@@ -602,7 +700,7 @@ def rolled_spectra(pose, tmap: TrackMap, rtex: RangeTexture,
         big = 1e9
         vmax = torch.where(ok, rr_c, torch.full_like(rr_c, -big)).amax(dim=-2)
         vmin = torch.where(ok, rr_c, torch.full_like(rr_c, big)).amin(dim=-2)
-        snap = (vmax - vmin) > cfg.rt_occlusion_cells * _cell_size(rtex, dtype)
+        snap = (vmax - vmin) > cfg.rt_occlusion_cells * _cell_size(rtex, dtype, midx)
         best = torch.argmax(wgt, dim=-1)[..., None, None]
         best = best.expand(best.shape[:-1] + (t_bins,))
 
@@ -671,8 +769,12 @@ def _check_fp32_matmul(device) -> None:
 
 def trace_fast_mxu(pose, tables, tmap: TrackMap, rtex: RangeTexture,
                    cfg: SimConfig, fused_ttc=None, opp=None, pool_off=None,
-                   pregeo=None):
+                   pregeo=None, midx=None):
     """Fast scan for poses (E, A, 3) (JAX scan_fast.trace_fast_mxu).
+
+    ``midx`` (int32, broadcast to (E, A)) scans each car on its map of
+    stacked maps and textures (multi-map batches; every branch below);
+    ``pregeo`` takes one map only.
 
     ``fused_ttc = (noise, vel (E, A))`` asks for the noisy scan and the
     wall-iTTC flag: returns (scan (E, A, B), hit (E, A) float 0/1), and
@@ -697,7 +799,8 @@ def trace_fast_mxu(pose, tables, tmap: TrackMap, rtex: RangeTexture,
     if fused_ttc is not None and use_megakernel(cfg):
         noise, vel = fused_ttc
         out, hit = scan_kernels.mega_edge_ttc(**mega_operands(
-            pose, tables, tmap, rtex, cfg, noise, vel, opp, pool_off, pregeo))
+            pose, tables, tmap, rtex, cfg, noise, vel, opp, pool_off, pregeo,
+            midx))
         return out.reshape(batch + (b_n,)), hit.reshape(batch)
     if pregeo is not None or pool_off is not None:
         raise ValueError("pregeo and pool_off need the megakernel branch "
@@ -713,7 +816,7 @@ def trace_fast_mxu(pose, tables, tmap: TrackMap, rtex: RangeTexture,
                          "renders have a fused noise + iTTC epilogue")
     _check_fp32_matmul(pose.device)
     t_bins = cfg.rt_theta_bins
-    sp = rolled_spectra(pose, tmap, rtex, cfg)
+    sp = rolled_spectra(pose, tmap, rtex, cfg, midx)
     f_s, wsum = sp.f_s.reshape(-1), sp.wsum.reshape(-1)
     if spectral:
         spec = sp.spec_r.reshape(-1, t_bins)
@@ -752,7 +855,9 @@ def trace_fast_mxu(pose, tables, tmap: TrackMap, rtex: RangeTexture,
         out = blend_kernels.theta_shuffle_blend(
             spec, f_s, wsum, rtex.gmat, rtex.c_frac, cfg.max_range)
     else:
+        thresh = cfg.rt_occlusion_cells * _cell_size(rtex, spec.dtype, midx)
+        if midx is not None:   # a row's threshold against its beams
+            thresh = torch.broadcast_to(thresh, batch + (1,)).reshape(-1, 1)
         out = snap_epilogue(spec, f_s, wsum, rtex.gmat, rtex.c_frac,
-                            cfg.max_range,
-                            cfg.rt_occlusion_cells * _cell_size(rtex, spec.dtype))
+                            cfg.max_range, thresh)
     return out.reshape(batch + (b_n,))

@@ -3,28 +3,67 @@
 PyTorch counterpart of ``red_gym_tpu/rollout.py``.  The env functions are
 already batched over a leading env axis, so ``batched_reset`` and
 ``batched_step`` are the plain calls; ``make_rollout`` replaces the JAX
-package's ``lax.scan`` with a loop.  Multi-map params (``map_idx``) and
-``randomize_starts`` are not ported yet.
+package's ``lax.scan`` with a loop.
+
+Multi-map batches come in the JAX package's two forms.  ``map_idx`` (E,)
+puts each env on its map of map-stacked params
+(``env.make_multimap_params``); it lives in ``EnvState.map_idx``.
+``map_axis=0`` says that the params' maps (and, in fast mode, textures)
+carry a leading env axis, env e on map e: the port runs it as the stack
+indexed by ``map_idx = arange(E)``, and the state's ``map_idx`` stays
+None, as in JAX.  ``make_rollout(randomize_starts=...)`` draws a done
+env's next map and start pose at each auto-reset (domain randomization).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from red_gym_tpu_torch.config import SimConfig
-from red_gym_tpu_torch.env import EnvParams, EnvState, Observation, reset, step
+from red_gym_tpu_torch.env import (EnvParams, EnvState, Observation, check_map_idx,
+                                   reset, reset_unchecked, step)
 
 
-def batched_reset(cfg: SimConfig, params: EnvParams, poses, gen):
-    """Reset E envs at poses (E, A, 3) -> (state, obs, reward, done, info)."""
-    return reset(cfg, params, poses, gen)
+def _env_maps(params: EnvParams, map_axis, e_n: int, device):
+    """The map index that runs ``map_axis=0``: env e on map e, (E,) int32;
+    None without a map axis.  Raises ValueError unless the params' maps
+    are stacked one an env."""
+    if map_axis is None:
+        return None
+    if map_axis != 0:
+        raise ValueError(f"map_axis must be 0 or None, got {map_axis}")
+    if params.tmap.dt.dim() != 3 or params.tmap.dt.shape[0] != e_n:
+        raise ValueError(f"map_axis=0 needs the params' maps stacked one an env: "
+                         f"{e_n} envs, tmap.dt {tuple(params.tmap.dt.shape)}")
+    return torch.arange(e_n, dtype=torch.int32, device=device)
 
 
-def batched_step(cfg: SimConfig, params: EnvParams, states, actions, gen):
-    """Step E envs: actions (E, A, 2)."""
-    return step(cfg, params, states, actions, gen)
+def batched_reset(cfg: SimConfig, params: EnvParams, poses, gen,
+                  map_axis: Optional[int] = None, map_idx=None):
+    """Reset E envs at poses (E, A, 3) -> (state, obs, reward, done, info).
+
+    ``map_idx`` (E,) assigns each env a map of map-stacked params;
+    ``map_axis=0`` means the params' maps carry a leading env axis."""
+    maps = _env_maps(params, map_axis, poses.shape[0], poses.device)
+    if maps is None:
+        return reset(cfg, params, poses, gen, map_idx=map_idx)
+    if map_idx is not None:
+        raise ValueError("pass map_idx or map_axis, not both")
+    check_map_idx(params, maps)
+    state, *rest = reset_unchecked(cfg, params, poses, gen, maps)
+    return (state._replace(map_idx=None), *rest)
+
+
+def batched_step(cfg: SimConfig, params: EnvParams, states, actions, gen,
+                 map_axis: Optional[int] = None):
+    """Step E envs: actions (E, A, 2); ``map_axis`` as in batched_reset."""
+    maps = _env_maps(params, map_axis, states.x.shape[0], states.x.device)
+    if maps is None:
+        return step(cfg, params, states, actions, gen)
+    state, *rest = step(cfg, params, states._replace(map_idx=maps), actions, gen)
+    return (state._replace(map_idx=None), *rest)
 
 
 class RolloutCarry(NamedTuple):
@@ -34,52 +73,95 @@ class RolloutCarry(NamedTuple):
 
 def _select(new: NamedTuple, old: NamedTuple, idx) -> NamedTuple:
     """``old`` with the rows ``idx`` of every field replaced by ``new``
-    (whose rows are exactly those envs)."""
+    (whose rows are exactly those envs); a field that is None stays None."""
     fields = []
     for a, b in zip(new, old):
-        b = b.clone()
-        b[idx] = a
+        if b is not None:
+            b = b.clone()
+            b[idx] = a
         fields.append(b)
     return type(old)(*fields)
 
 
 def make_rollout(cfg: SimConfig, params: EnvParams,
                  policy: Callable[[Observation, torch.Generator], torch.Tensor],
-                 steps: int):
+                 steps: int, map_axis: Optional[int] = None,
+                 auto_reset: bool = True, collect: bool = False,
+                 randomize_starts=None):
     """Build ``run(carry, gen) -> (carry, outs)`` over ``steps`` steps.
 
-    ``policy(obs, gen) -> actions (E, A, 2)``.  On done, an env restarts
-    from its start pose (one zero-action step, as ``reset``); only the done
-    envs are re-stepped.  ``outs`` holds the per-step ``reward`` and
-    ``done``, stacked (steps, E), and ``resets``, the number of steps that
-    reset some env.
+    ``policy(obs, gen) -> actions (E, A, 2)``.  With ``auto_reset`` (the
+    default), a done env restarts from its start pose on its map (one
+    zero-action step, as ``reset``); only the done envs are re-stepped.
+    ``outs`` holds the per-step ``reward`` and ``done``, stacked (steps, E),
+    ``resets``, the number of steps that reset some env, and with
+    ``collect`` the per-step observations ``obs``, an Observation of
+    (steps, E, ...) fields (after the step's resets, as in JAX).
+    ``map_axis`` is batched_reset's.
 
-    Under ``noise_mode="pool_rot"`` env g of a step call reads pool row
-    (g + off) % rows, g counted within the batch passed in.  The reset
-    step passes only the done envs, so the j-th of them reads row
-    (j + off') % rows with a fresh offset off' of its own.  The JAX package
-    re-steps every env and keeps the done ones, so there the j-th done env
-    reads its position in the full batch.  The difference is in which rows
-    are drawn, not in their distribution: one shared offset per call,
-    distinct rows within the call."""
+    ``randomize_starts`` (M, A, 3), for envs with ``map_idx`` on M stacked
+    maps: each done env draws its next map m uniformly from ``gen`` and
+    restarts at ``randomize_starts[m]`` on map m.  Without ``map_idx``
+    envs ``run`` raises ValueError (JAX asserts alike).
+
+    Random streams.  The JAX package draws a map for every env from a
+    split key and keeps the done envs' draws; here only the done envs
+    draw, in env order, from ``gen``.  Under ``noise_mode="pool_rot"`` env
+    g of a step call reads pool row (g + off) % rows, g counted within the
+    batch passed in.  The reset step passes only the done envs, so the j-th
+    of them reads row (j + off') % rows with a fresh offset off' of its
+    own.  The JAX package re-steps every env and keeps the done ones, so
+    there the j-th done env reads its position in the full batch.  The
+    differences are in which maps and rows are drawn, not in their
+    distribution: maps uniform, one shared pool offset per call, distinct
+    rows within the call."""
+    if randomize_starts is not None:
+        if map_axis is not None:
+            raise ValueError("randomize_starts needs map_idx envs, not map_axis")
+        randomize_starts = torch.as_tensor(randomize_starts, dtype=cfg.tdtype,
+                                           device=params.tables.cosines.device)
+        m_n = params.tmap.dt.shape[0] if params.tmap.dt.dim() == 3 else 0
+        if randomize_starts.shape != (m_n, cfg.num_agents, 3):
+            raise ValueError(f"randomize_starts must be (M, A, 3) = ({m_n}, "
+                             f"{cfg.num_agents}, 3) for these params, got "
+                             f"{tuple(randomize_starts.shape)}")
 
     def run(carry: RolloutCarry, gen: torch.Generator):
-        rewards, dones, resets = [], [], 0
+        rewards, dones, observations, resets = [], [], [], 0
         state, obs = carry
+        if randomize_starts is not None and state.map_idx is None:
+            raise ValueError("randomize_starts needs map_idx envs "
+                             "(env.make_multimap_params, reset(map_idx=...))")
+        maps = _env_maps(params, map_axis, state.x.shape[0], state.x.device)
         for _ in range(steps):
             actions = policy(obs, gen)
+            if maps is not None:
+                state = state._replace(map_idx=maps)
             state, obs, reward, done, _ = step(cfg, params, state, actions, gen)
-            idx = torch.nonzero(done).squeeze(1)
-            if idx.numel():
+            idx = torch.nonzero(done).squeeze(1) if auto_reset else None
+            if idx is not None and idx.numel():
                 resets += 1
-                r_state, r_obs, *_ = reset(cfg, params, state.start_pose[idx], gen)
+                poses = state.start_pose[idx]
+                new_maps = None if state.map_idx is None else state.map_idx[idx]
+                if randomize_starts is not None:
+                    new_maps = torch.randint(
+                        0, randomize_starts.shape[0], (idx.numel(),), generator=gen,
+                        device=idx.device, dtype=torch.int32)
+                    poses = randomize_starts[new_maps]
+                r_state, r_obs, *_ = reset_unchecked(cfg, params, poses, gen, new_maps)
                 state = _select(r_state, state, idx)
                 obs = _select(r_obs, obs, idx)
+            if maps is not None:
+                state = state._replace(map_idx=None)
             rewards.append(reward)
             dones.append(done)
-        return RolloutCarry(state, obs), {"reward": torch.stack(rewards),
-                                          "done": torch.stack(dones),
-                                          "resets": resets}
+            if collect:
+                observations.append(obs)
+        outs = {"reward": torch.stack(rewards), "done": torch.stack(dones),
+                "resets": resets}
+        if collect:
+            outs["obs"] = Observation(*(torch.stack(f) for f in zip(*observations)))
+        return RolloutCarry(state, obs), outs
 
     return run
 

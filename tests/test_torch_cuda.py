@@ -20,18 +20,25 @@ scan (csrc/march.cu) is held bit-equal to its twin in both entry forms,
 float32 and float64, march_iters 0 and 40, at ray counts around its block,
 from origins outside the map, and through a texture build; an exact-mode
 F110Env step on the GPU is held against the same step on the CPU.
+Multi-map batches: the march kernel's stacked form (map indices 0 to
+M - 1, rays leaving their map) bit-equal to its twin and to each map marched
+alone, the megakernel on a stacked texture at the scan bar and equal to
+each map alone, and multi-map resets and steps on the GPU against the CPU
+in the default, bilinear, ultra and exact modes.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import close_poses, map_free_poses, random_free_poses, random_states
+from chip_smoke import (close_poses, map_free_poses, map_of_stack, params_of_stack,
+                        per_map_poses, random_free_poses, random_states)
 from red_gym_tpu_torch import assets, env, rollout
 from red_gym_tpu_torch.config import Integrator, SimConfig
-from red_gym_tpu_torch.maps.loader import load_map
+from red_gym_tpu_torch.maps.loader import load_map, stack_maps
 from red_gym_tpu_torch.ops import agent_scan, collision, march_kernels, scan
 from red_gym_tpu_torch.ops import scan_fast, scan_kernels, state_kernels
 
@@ -1002,3 +1009,238 @@ def test_exact_f110env_step_on_gpu_matches_cpu(gpu_maps):
         assert np.quantile(err, 0.99) < 1e-3
         assert np.mean(err > 4 * res) < 2e-3
         np.testing.assert_array_equal(og["collisions"], oc["collisions"])
+
+
+# ---------------------------------------------------------------------------
+# multi-map batches: the march kernel's stacked form and the megakernel on a
+# stacked texture
+# ---------------------------------------------------------------------------
+
+BERLIN = os.path.join(assets.DATA_DIR, "classic", "berlin.yaml")
+STACK = [assets.named_map_yaml(TRACK), BERLIN, assets.named_map_yaml("track_narrow")]
+
+
+@pytest.fixture(scope="module")
+def gpu_stack():
+    """Three maps of different resolution, origin and extent stacked on the
+    GPU in float32 and float64 (exact mode, no texture), with theta tables,
+    and each map alone (the raw map)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    out = {}
+    for dt in ("float32", "float64"):
+        cfg = SimConfig(dtype=dt, num_agents=2)
+        params = env.make_multimap_params(cfg, STACK, device=torch.device("cuda"))
+        alone = [map_of_stack(params.tmap, m, unpad=True) for m in range(len(STACK))]
+        out[dt] = (params.tmap, params.tables, alone)
+    return out
+
+
+def _stack_poses(alone, midx, gen):
+    return per_map_poses(lambda m, n: map_free_poses(alone[m], 2 * n, gen).reshape(n, 2, 3),
+                         midx, 2)
+
+
+@pytest.mark.parametrize("march_iters", [0, 40])
+@pytest.mark.parametrize("form", ["beams", "rays"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_march_kernel_stacked_bit_equal_to_twin(gpu_stack, dtype, form, march_iters):
+    """Both forms over a stack, map indices 0 to M - 1 (first and last
+    included), torch.equal to the twin."""
+    tmap, tables, alone = gpu_stack[dtype]
+    cfg = SimConfig(dtype=dtype, march_iters=march_iters)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    midx = (torch.arange(300, device="cuda") % len(STACK)).to(torch.int32)
+    poses = _stack_poses(alone, midx, gen)
+    rows = midx[:, None].expand(300, 2)
+    if form == "beams":
+        before = march_kernels.march_beams.launches
+        got = march_kernels.march_beams(poses, tables.cosines, tables.sines, tmap, cfg, rows)
+        assert march_kernels.march_beams.launches == before + 1
+        want = march_kernels.march_beams_reference(poses, tables.cosines, tables.sines, tmap,
+                                                   cfg, rows)
+    else:
+        shape = poses.shape[:-1] + (16,)
+        ang = 2 * torch.pi * torch.rand(shape, generator=gen, device="cuda",
+                                        dtype=poses.dtype)
+        args = (poses[..., 0:1].expand(shape), poses[..., 1:2].expand(shape),
+                torch.cos(ang), torch.sin(ang), tmap, cfg, rows[..., None].expand(shape))
+        got = march_kernels.march(*args)
+        want = march_kernels.march_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(got.mean()) > 0.5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_march_kernel_stacked_rays_leave_their_map(gpu_stack, dtype):
+    """Origins around each map's true extents: a ray outside its map reads
+    dt[m, h_m - 1, w_m - 1] of its own map, on the kernel as on the twin."""
+    tmap, tables, alone = gpu_stack[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n = 999
+    midx = (torch.arange(n, device="cuda") % len(STACK)).to(torch.int32)
+    dt = tmap.dt.dtype
+    u = torch.rand((n, 3), generator=gen, device="cuda", dtype=dt)
+    ext_x = tmap.width[midx].to(dt) * tmap.resolution[midx]
+    ext_y = tmap.height[midx].to(dt) * tmap.resolution[midx]
+    x = tmap.orig_x[midx] + (u[:, 0] * 1.4 - 0.2) * ext_x
+    y = tmap.orig_y[midx] + (u[:, 1] * 1.4 - 0.2) * ext_y
+    poses = torch.stack([x, y, u[:, 2] * 14.0 - 7.0], dim=-1)
+    d0 = march_kernels.dt_lookup(x, y, tmap, midx)
+    corner = tmap.dt[midx.long(), tmap.height[midx].long() - 1, tmap.width[midx].long() - 1]
+    for m in range(len(STACK)):
+        assert bool(((d0 == corner) & (midx == m)).any()), f"no origin outside map {m}"
+    cfg = SimConfig(dtype=dtype, num_beams=540)
+    got = march_kernels.march_beams(poses, tables.cosines, tables.sines, tmap, cfg, midx)
+    assert torch.equal(got, march_kernels.march_beams_reference(
+        poses, tables.cosines, tables.sines, tmap, cfg, midx))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_march_kernel_stacked_equals_standalone(gpu_stack, dtype):
+    """The envs of each map, marched on the stack, torch.equal the same
+    poses marched on that map alone; and the one-map form equals the
+    stacked form on a one-map stack (index 0), so the one-map path keeps
+    its result."""
+    tmap, tables, alone = gpu_stack[dtype]
+    cfg = SimConfig(dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    midx = (torch.arange(600, device="cuda") % len(STACK)).to(torch.int32)
+    poses = _stack_poses(alone, midx, gen)
+    got = march_kernels.march_beams(poses, tables.cosines, tables.sines, tmap, cfg,
+                                    midx[:, None])
+    for m in range(len(STACK)):
+        sel = torch.nonzero(midx == m).squeeze(1)
+        one = march_kernels.march_beams(poses[sel], tables.cosines, tables.sines, alone[m],
+                                        cfg)
+        assert torch.equal(got[sel], one), m
+        single = stack_maps([alone[m]])
+        assert torch.equal(one, march_kernels.march_beams(
+            poses[sel], tables.cosines, tables.sines, single, cfg,
+            torch.zeros(sel.numel(), 1, dtype=torch.int32, device="cuda")))
+
+
+def test_march_kernel_stacked_rejects_what_it_cannot_take(gpu_stack):
+    tmap, tables, alone = gpu_stack["float32"]
+    poses = torch.zeros((4, 2, 3), device="cuda")
+    cfg = SimConfig()
+    midx = torch.zeros((4, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="needs a map index"):
+        march_kernels.march_beams(poses, tables.cosines, tables.sines, tmap, cfg)
+    with pytest.raises(ValueError, match="takes none"):
+        march_kernels.march_beams(poses, tables.cosines, tables.sines, alone[0], cfg, midx)
+    with pytest.raises(ValueError, match="midx must be int32"):
+        march_kernels.march_beams(poses, tables.cosines, tables.sines, tmap, cfg, midx.long())
+
+
+@pytest.fixture(scope="module")
+def gpu_stack_fast():
+    """The stride-8 default textures of STACK stacked on the GPU, and each
+    map's own params."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SimConfig(num_agents=2, num_beams=1080, scan_mode="fast", rt_pose_stride=8,
+                    ttc_thresh=0.5)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
+        params = env.make_multimap_params(cfg, STACK, device=torch.device("cuda"))
+        alone = [env.make_params(cfg, y, device=torch.device("cuda")) for y in STACK]
+    return cfg, params, alone
+
+
+def _mega_stack_operands(cfg, params, midx, gen):
+    e_n = midx.numel()
+    dev = midx.device
+    poses = per_map_poses(lambda m, n: close_poses(params_of_stack(params, m), n, 2, gen),
+                          midx, 2)
+    vel = -2.0 + 10.0 * torch.rand((e_n, 2), generator=gen, device=dev)
+    noise = params.noise_pool[torch.randint(0, cfg.noise_pool_rows, (e_n,), generator=gen,
+                                            device=dev)]
+    verts = collision.get_vertices(poses, params.vehicle.length, params.vehicle.width)
+    opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
+    return poses, vel, noise, opp
+
+
+def test_mega_on_stacked_texture_matches_plain_twin(gpu_stack_fast):
+    """The megakernel with opponents on the flat view of a stacked texture
+    at the scan bar of its twin, hits equal; 1001 envs (a partial block)."""
+    cfg, params, _ = gpu_stack_fast
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    midx = (torch.arange(1001, device="cuda") % len(STACK)).to(torch.int32)
+    poses, vel, noise, opp = _mega_stack_operands(cfg, params, midx, gen)
+    ops = scan_fast.mega_operands(poses, params.tables, params.tmap, params.rtex, cfg, noise,
+                                  vel, opp=opp, midx=midx[:, None])
+    assert ops["rt"].shape == (len(STACK) * params.rtex.rt.shape[1], 640)
+    _check_against_twin(params._replace(rtex=params.rtex._replace(
+        cell=params.rtex.cell.min())), ops, "opp")
+
+
+def test_mega_on_stacked_texture_equals_standalone(gpu_stack_fast):
+    """For every map, the megakernel's rows of that map's envs on the
+    stacked texture torch.equal the same operands on that map alone."""
+    cfg, params, alone = gpu_stack_fast
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    midx = (torch.arange(900, device="cuda") % len(STACK)).to(torch.int32)
+    poses, vel, noise, opp = _mega_stack_operands(cfg, params, midx, gen)
+    out, hit = scan_kernels.mega_edge_ttc(**scan_fast.mega_operands(
+        poses, params.tables, params.tmap, params.rtex, cfg, noise, vel, opp=opp,
+        midx=midx[:, None]))
+    out, hit = out.reshape(900, 2, -1), hit.reshape(900, 2)
+    for m, one in enumerate(alone):
+        sel = torch.nonzero(midx == m).squeeze(1)
+        o, h = scan_kernels.mega_edge_ttc(**scan_fast.mega_operands(
+            poses[sel], one.tables, one.tmap, one.rtex, cfg, noise[sel], vel[sel],
+            opp=opp[sel]))
+        assert torch.equal(o.reshape(-1, 2, o.shape[-1]), out[sel]), m
+        assert torch.equal(h.reshape(-1, 2), hit[sel]), m
+
+
+@pytest.mark.parametrize("mode", ["default", "bilinear", "ultra", "exact"])
+def test_multimap_rollout_on_gpu_matches_cpu(gpu_stack_fast, mode):
+    """A multi-map reset + 5 steps on the GPU (the kernels) and on the CPU
+    (their twins) from the same params (made on the GPU, moved), bf16 e/w
+    taps on both, without scan noise: poses within 1e-4 m, scans at the
+    float32 bar with the finer map's texture cells, collisions equal; the
+    state kernel does not run."""
+    cfg, _, _ = gpu_stack_fast
+    cfg = dataclasses.replace(cfg, scan_noise_std=0.0, rt_ew_dtype="bfloat16", **{
+        "default": {}, "bilinear": dict(rt_spatial="bilinear"),
+        "ultra": dict(scan_interp="spectral", rt_occlusion="off", rt_grad=False),
+        "exact": dict(scan_mode="exact")}[mode])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
+        params_g = env.make_multimap_params(cfg, STACK[:2], device="cuda")
+
+    def move(v, dev):
+        if v is None:
+            return None
+        if isinstance(v, tuple):
+            return type(v)(*[move(t, dev) for t in v])
+        return v.to(dev)
+
+    cell = float(params_g.tmap.resolution.min() if params_g.rtex is None
+                 else params_g.rtex.cell.min())
+    starts = torch.as_tensor(np.stack([assets.waypoint_start_poses(TRACK, 2),
+                                       np.array([[0.0, 0.0, 0.0], [0.0, -1.0, 0.0]])]),
+                             dtype=torch.float32)
+    midx = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    act = torch.tensor([0.1, 3.0]).expand(4, 2, 2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = move(params_g, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        before = state_kernels.prestep.launches
+        seq = [rollout.batched_reset(cfg, params, starts[midx.long()].to(dev), gen,
+                                     map_idx=midx.to(dev))[:2]]
+        for _ in range(5):
+            seq.append(rollout.batched_step(cfg, params, seq[-1][0], act.to(dev), gen)[:2])
+        assert state_kernels.prestep.launches == before
+        runs[dev] = seq
+    for (sg, og), (sc, oc) in zip(runs["cuda"], runs["cpu"]):
+        np.testing.assert_allclose(sg.x.cpu().numpy(), sc.x.numpy(), rtol=0, atol=1e-4)
+        err = (og.scans.cpu() - oc.scans).abs()
+        assert float(torch.quantile(err.flatten(), 0.99)) < 1e-3
+        assert float((err > 4 * cell).float().mean()) < 2e-3
+        assert torch.equal(sg.collisions.cpu(), sc.collisions)

@@ -21,6 +21,7 @@ CFG = SimConfig(num_beams=270, scan_mode="fast", rt_pose_stride=8)
 
 ENTRY_POINTS = {
     "env.make_params": env.make_params,
+    "env.make_multimap_params": env.make_multimap_params,
     "env.F110Env": env.F110Env,
     "maps.loader.load_map": loader.load_map,
     "ops.scan.build_tables": scan.build_tables,
@@ -28,11 +29,14 @@ ENTRY_POINTS = {
     "config.VehicleParams.from_dict": VehicleParams.from_dict,
     "interop.to_tensor": interop.to_tensor,
     "interop.params_from_numpy": interop.params_from_numpy,
+    "interop.texture_from_numpy": interop.texture_from_numpy,
     "interop.state_from_numpy": interop.state_from_numpy,
 }
 
 CALLS_WITHOUT_DEVICE = {
     "env.make_params": lambda: env.make_params(CFG, assets.named_map_yaml(TRACK)),
+    "env.make_multimap_params": lambda: env.make_multimap_params(
+        CFG, assets.packaged_tracks()[:2]),
     "env.F110Env": lambda: env.F110Env(map=assets.named_map_yaml(TRACK), num_beams=270,
                                        rt_pose_stride=8),
     "maps.loader.load_map": lambda: loader.load_map(assets.named_map_yaml(TRACK)),
@@ -41,6 +45,7 @@ CALLS_WITHOUT_DEVICE = {
     "config.VehicleParams.from_dict": lambda: VehicleParams.from_dict({"mu": 0.5}),
     "interop.to_tensor": lambda: interop.to_tensor(np.zeros(3)),
     "interop.params_from_numpy": lambda: interop.params_from_numpy(CFG, {}, {}, {}, {}),
+    "interop.texture_from_numpy": lambda: interop.texture_from_numpy(CFG, {}),
     "interop.state_from_numpy": lambda: interop.state_from_numpy({}),
 }
 
