@@ -111,13 +111,32 @@ line:
      each: multimap (the default config: the eager pre-scan chain and the
      megakernel with opponents), multimap_bilinear (kernel 4),
      multimap_ultra (train_ppo.py --ultra --multi-map: kernel 5) and
-     multimap_exact (the march kernel's stacked form).
+     multimap_exact (the march kernel's stacked form);
+7. PPO training (``red_gym_tpu_torch.examples.train_ppo``'s config and
+   ``agents.ppo.PPO``: ScanPolicy(hidden=256, scan_stride=8), rollout 32,
+   4 minibatches, 2 epochs), launch counts set to 0 before and read after
+   each:
+   - ppo: the trainer's default scan (fast, bilinear, edge + grad channels,
+     pool noise; kernel 4) on track_0019, one warm-up train_step, then 3
+     timed ones: collect env-steps/s, update ms, iteration env-steps/s and
+     peak memory; the loss finite, the params changed, kernel 4 launched
+     collect steps + reset steps times, prestep and every other kernel 0;
+   - ppo_ultra: one iteration of --ultra, kernel 5 counted the same way;
+   - ppo_multimap_pursuit: one iteration on the 11 stacked tracks with
+     pure_pursuit_opponents_multi (kernel 4); the opponents of the envs
+     that did not restart moved forward along their own raceline; the
+     pursuit step's own peak memory under 2 GiB;
+   - checkpoint: a PPOState and an EnvState saved and restored on the card
+     (utils.checkpoint) torch.equal to what was saved, then a 200-step
+     mean-policy rollout (train_ppo --eval) with its speed, crash rate and
+     laps.
 
 ``--profile`` adds torch.profiler summaries (device kernels and device
 busy time per step) of the default, eager, bilinear, ultra and exact
-paths and of the four multi-map paths, and tables of the default,
-bilinear, ultra, exact, multimap and multimap_exact paths' kernels by
-device time.
+paths and of the four multi-map paths, tables of the default, bilinear,
+ultra, exact, multimap and multimap_exact paths' kernels by device time,
+and the trainer's split of one iteration by section (``[profile]`` line of
+train_ppo.profile_iteration).
 
 The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
 """
@@ -128,6 +147,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1129,6 +1149,16 @@ def reset_launch_counts() -> None:
     spectral_kernels.theta_spectral_ttc.launches = 0
 
 
+def check_counts(label: str, counts: dict, uses: tuple, want: int) -> None:
+    """Fail unless each kernel in ``uses`` launched ``want`` times (steps +
+    reset steps) and every other kernel never."""
+    for name, n in counts.items():
+        if name in uses and n != want:
+            fail(f"{label}: {name} launched {n} times, expected {want} (steps + resets)")
+        if name not in uses and n:
+            fail(f"{label}: {name} launched {n} times on a path that does not run it")
+
+
 def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
               profile: bool, max_step_ms: float | None = None, maps=None) -> dict:
     """Drive one path; ``uses`` names the launch counters it must advance
@@ -1188,12 +1218,7 @@ def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
         f"peak device memory {peak / 2**30:.2f} GiB")
     say(f"main:{label}", f"{n_done} env episodes ended; {resets} of {steps} steps "
         f"reset some env; launches {counts}")
-    for name, n in counts.items():
-        want = steps + resets if name in uses else 0
-        if n != want:
-            fail(f"{label}: {name} launched {n} times, expected {want} "
-                 f"({steps} steps + {resets} resets)" if want else
-                 f"{label}: {name} launched {n} times on a path that does not run it")
+    check_counts(label, counts, uses, steps + resets)
     scans = carry.obs.scans
     if not torch.isfinite(scans).all():
         fail(f"{label}: non-finite scans")
@@ -1239,6 +1264,215 @@ def profile_steps(label, cfg, params, policy, carry, gen, table: bool,
         for line in prof.key_averages().table(sort_by="cuda_time_total",
                                               row_limit=25).splitlines():
             print(f"[profile] {line}", flush=True)
+
+
+PPO_ITERS = 3              # timed train_steps of the ppo phase, after one warm-up
+EVAL_STEPS = 200           # the checkpoint phase's mean-policy rollout
+PURSUIT_BYTES = 2 * 2**30  # the pursuit step's own peak memory at full width
+
+
+def ppo_trainer(argv: list, params, dev):
+    """train_ppo's trainer for its flags ``argv`` on ``params`` (built for the
+    same config), with --envs ENVS: (ppo, pstate, states, obs, args,
+    tracks)."""
+    import torch
+
+    from red_gym_tpu_torch import assets, rollout
+    from red_gym_tpu_torch.agents.ppo import PPO, PPOConfig
+    from red_gym_tpu_torch.examples import train_ppo
+
+    args = train_ppo.parse_args(["--envs", str(ENVS)] + argv)
+    cfg = train_ppo.make_config(args)
+    tracks = (assets.packaged_tracks() if args.multi_map
+              else [assets.named_map_yaml(TRACK)])
+    table = torch.as_tensor(assets.start_pose_table(tracks, AGENTS), dtype=cfg.tdtype,
+                            device=dev)
+    midx = (torch.arange(ENVS, device=dev) % len(tracks)).to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    states, obs, *_ = rollout.batched_reset(cfg, params, table[midx.long()], gen,
+                                            map_idx=midx if args.multi_map else None)
+    ppo = PPO(cfg, params, PPOConfig(rollout_len=args.rollout),
+              opponent_plan=train_ppo.opponent_hook(args, tracks, dev))
+    pstate = ppo.init(torch.Generator().manual_seed(args.seed + 1))
+    return ppo, pstate, states, obs, args, tracks
+
+
+def timed_halves(ppo, times: dict) -> None:
+    """Time ppo.collect and ppo._update, each between two synchronizes, as
+    train_step calls them."""
+    import torch
+
+    def wrap(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    ppo.collect = wrap("collect", ppo.collect)
+    ppo._update = wrap("update", ppo._update)
+
+
+def ppo_phase(params, dev, profile: bool):
+    """The trainer's default config: a warm-up train_step, then PPO_ITERS
+    timed ones -> (ppo, pstate, states, obs, kernel 4's launches)."""
+    import torch
+
+    from red_gym_tpu_torch.examples import train_ppo
+
+    ppo, pstate, states, obs, args, _ = ppo_trainer([], params, dev)
+    if ppo.cfg.rt_spatial != "bilinear" or ppo.cfg.scan_mode != "fast":
+        fail(f"ppo: the trainer's default config is not the bilinear fast scan: {ppo.cfg}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pstate, states, obs, metrics = ppo.train_step(pstate, states, obs)
+    loss0 = float(metrics["loss"])
+    say("ppo", f"warm-up iteration {time.perf_counter() - t0:.2f} s, loss {loss0:.4f}")
+    if profile:
+        pstate, states, obs, _ = train_ppo.profile_iteration(ppo, pstate, states, obs)
+    before = {k: v.clone() for k, v in pstate.policy.state_dict().items()}
+    times = {"collect": 0.0, "update": 0.0}
+    timed_halves(ppo, times)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    resets, lines = 0, []
+    for _ in range(PPO_ITERS):
+        pstate, states, obs, metrics = ppo.train_step(pstate, states, obs)
+        resets += int(metrics["reset_steps"])
+        lines.append({k: round(float(v), 6) for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del ppo.collect, ppo._update
+    steps = PPO_ITERS * args.rollout
+    n = ENVS * steps
+    say("ppo", f"{PPO_ITERS} iterations of {ENVS} envs x {AGENTS} agents x {BEAMS} beams, "
+        f"rollout {args.rollout}, 4 minibatches x 2 epochs: {seconds:.3f} s, "
+        f"{n / seconds:.0f} env-steps/s a whole iteration; collect {times['collect']:.3f} s "
+        f"({n / times['collect']:.0f} env-steps/s); update "
+        f"{1e3 * times['update'] / PPO_ITERS:.1f} ms an iteration; peak device memory "
+        f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above what was allocated "
+        f"before (this run's textures, envs and trainer)")
+    say("ppo", f"metrics {lines}; {resets} of {steps} collect steps reset some env; "
+        f"launches {counts}")
+    check_counts("ppo", counts, ("theta_shuffle_blend_edge_ttc_opp",), steps + resets)
+    if not all(math.isfinite(m["loss"]) for m in lines):
+        fail(f"ppo: non-finite loss {lines}")
+    after = pstate.policy.state_dict()
+    if all(torch.equal(before[k], after[k]) for k in before):
+        fail("ppo: no parameter moved in the timed iterations")
+    return ppo, pstate, states, obs, counts["theta_shuffle_blend_edge_ttc_opp"]
+
+
+def ppo_once(label: str, argv: list, params, dev, uses: str, after=None) -> int:
+    """One train_step of train_ppo ``argv`` -> the launches of kernel
+    ``uses``; ``after(ppo, states before, states after, tracks, dev)``
+    checks more."""
+    import torch
+
+    ppo, pstate, states, obs, args, tracks = ppo_trainer(argv, params, dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pstate, states2, obs2, metrics = ppo.train_step(pstate, states, obs)
+    resets = int(metrics["reset_steps"])
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    say(label, f"one iteration (first, with its warm-up) {seconds:.2f} s, "
+        f"{ENVS * args.rollout / seconds:.0f} env-steps/s; loss "
+        f"{float(metrics['loss']):.4f}, speed {float(metrics['speed_mean']):.3f}; "
+        f"{resets} reset steps; launches {counts}")
+    check_counts(label, counts, (uses,), args.rollout + resets)
+    if not math.isfinite(float(metrics["loss"])):
+        fail(f"{label}: non-finite loss")
+    if after is not None:
+        after(ppo, states, states2, tracks, dev)
+    return counts[uses]
+
+
+def pursuit_progress(ppo, states, states2, tracks, dev) -> None:
+    """The opponents of envs that did not restart advanced along their
+    track's raceline; the pursuit step's own peak memory."""
+    import torch
+
+    from red_gym_tpu_torch import assets, env
+    from red_gym_tpu_torch.agents import pure_pursuit as pp
+
+    stacked = torch.stack([pp.load_waypoints_csv(assets.waypoints_csv(t),
+                                                 dtype=torch.float32, device=dev)
+                           for t in tracks])
+    lines = stacked[states.map_idx.long(), :, :2]
+    steps = ppo.pcfg.rollout_len
+    kept = states2.step_idx == states.step_idx + steps
+    _, d0, _, i0 = pp.nearest_point(states.x[:, 1, 0], states.x[:, 1, 1], lines)
+    _, d1, _, i1 = pp.nearest_point(states2.x[:, 1, 0], states2.x[:, 1, 1], lines)
+    n_wp = lines.shape[1]
+    adv = torch.remainder(i1 - i0, n_wp)
+    fwd = (adv > 0) & (adv < n_wp // 2) & kept
+    share = float(fwd.sum()) / max(int(kept.sum()), 1)
+    say("ppo_multimap_pursuit", f"{int(kept.sum())} of {ENVS} envs did not restart; "
+        f"their opponents advanced along their raceline in {100 * share:.1f} % of envs "
+        f"(median {float(adv[kept].float().median()):.0f} waypoints, distance to the "
+        f"raceline median {float(d1[kept].median()):.3f} m)")
+    if int(kept.sum()) < ENVS // 2 or share < 0.9:
+        fail("ppo_multimap_pursuit: the opponents did not move forward along their raceline")
+    obs = env._build_obs(states2, torch.zeros((ENVS, AGENTS, 1), device=dev))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ppo.opponent_plan(obs, states2.map_idx)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    say("ppo_multimap_pursuit", f"pursuit step of {ENVS} x {AGENTS} cars on {n_wp} "
+        f"waypoints: peak {peak / 2**30:.3f} GiB above what was allocated")
+    if peak > PURSUIT_BYTES:
+        fail(f"ppo_multimap_pursuit: the pursuit step took {peak / 2**30:.2f} GiB")
+
+
+def checkpoint_phase(ppo, pstate, states, obs) -> None:
+    """Save and restore a PPOState and an EnvState on the card; then the
+    mean policy's --eval rollout."""
+    import tempfile
+
+    import torch
+
+    from red_gym_tpu_torch.examples import train_ppo
+    from red_gym_tpu_torch.utils import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save(os.path.join(tmp, "ckpt.pt"), {"pstate": pstate,
+                                                             "states": states})
+        size = os.path.getsize(path)
+        like = {"pstate": ppo.init(torch.Generator().manual_seed(12345)),
+                "states": states}
+        got = checkpoint.restore(path, like=like)
+    same = (all(torch.equal(v, got["pstate"].policy.state_dict()[k])
+                for k, v in pstate.policy.state_dict().items())
+            and torch.equal(pstate.gen.get_state(), got["pstate"].gen.get_state())
+            and all(torch.equal(a, b) for a, b in zip(states, got["states"])
+                    if a is not None))
+    opt_a, opt_b = pstate.optimizer.state_dict(), got["pstate"].optimizer.state_dict()
+    same = same and all(torch.equal(v, opt_b["state"][i][k])
+                        for i, s in opt_a["state"].items() for k, v in s.items())
+    on_card = all(t.is_cuda for t in got["pstate"].policy.state_dict().values())
+    say("checkpoint", f"PPOState + EnvState ({size / 1e6:.1f} MB): restored torch.equal "
+        f"{same}, on the card {on_card}")
+    if not (same and on_card):
+        fail("checkpoint: the restored state differs from the saved one")
+    t0 = time.perf_counter()
+    speed, crash, laps = train_ppo.evaluate(ppo, got["pstate"], states, obs, EVAL_STEPS)
+    say("checkpoint", f"eval over {ENVS} envs x {EVAL_STEPS} steps ({time.perf_counter() - t0:.1f} "
+        f"s): mean speed {speed:.2f} m/s, crash rate {crash:.3f}, final laps (mean) "
+        f"{laps:.2f}")
+    if not all(map(math.isfinite, (speed, crash, laps))):
+        fail("checkpoint: non-finite eval numbers")
 
 
 def main() -> None:
@@ -1347,7 +1581,7 @@ def main() -> None:
         fail("exact: make_params built a range texture")
     exact = main_path("exact", exact_cfg, exact_params, dev, STEPS, ("march[beams]",),
                       args.profile, max_step_ms=MARCH_STEP_MS)
-    del params, leg_params, exact_params
+    del exact_params
 
     # multi-map batches: every packaged track, stacked (train_ppo.py --multi-map)
     tracks = assets.packaged_tracks()
@@ -1384,6 +1618,13 @@ def main() -> None:
     if mm_default["prestep"] != 0:
         fail("multimap: the state kernel ran under map_idx")
 
+    # PPO training: the trainer's configs read the textures built above
+    ppo, pstate, states, obs, ppo_k4 = ppo_phase(params, dev, args.profile)
+    ppo_k5 = ppo_once("ppo_ultra", ["--ultra"], leg_params, dev, "theta_spectral_ttc")
+    ppo_once("ppo_multimap_pursuit", ["--multi-map", "--opponents", "pursuit"],
+             mm["default"], dev, "theta_shuffle_blend_edge_ttc_opp", after=pursuit_progress)
+    checkpoint_phase(ppo, pstate, states, obs)
+
     mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
                 "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}
     blend_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/theta_blend.cu"}
@@ -1406,10 +1647,14 @@ def main() -> None:
         records.append({"name": name, **blend_src,
                         "replaces": f"red_gym_tpu/ops/pallas_scan.py:{line}",
                         "launches": counts[name], **blend[name]})
+    # kernel 4 on the trainer's default path, kernel 5 on --ultra
+    next(r for r in records
+         if r["name"] == "theta_shuffle_blend_edge_ttc_opp")["ppo_launches"] = ppo_k4
     records.append({"name": "theta_spectral_ttc", "route": "cuda",
                     "source": "red_gym_tpu_torch/csrc/theta_spectral.cu",
                     "replaces": "red_gym_tpu/ops/pallas_scan.py:692",
-                    "launches": ultra_counts["theta_spectral_ttc"], **spectral})
+                    "launches": ultra_counts["theta_spectral_ttc"],
+                    "ppo_launches": ppo_k5, **spectral})
     records.append({"name": "march", "route": "cuda",
                     "source": "red_gym_tpu_torch/csrc/march.cu",
                     "replaces": "red_gym_tpu/ops/scan.py:153",

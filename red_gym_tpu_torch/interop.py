@@ -14,6 +14,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from red_gym_tpu_torch.agents.pure_pursuit import PurePursuitParams
 from red_gym_tpu_torch.config import SimConfig, VehicleParams, resolve_device
 from red_gym_tpu_torch.env import EnvParams, EnvState
 from red_gym_tpu_torch.maps.loader import TrackMap
@@ -83,3 +84,30 @@ def state_from_numpy(state: Mapping, device="cuda") -> EnvState:
     if "map_idx" in fields:
         fields["map_idx"] = fields["map_idx"].to(torch.int32)
     return EnvState(**fields)
+
+
+def policy_from_numpy(flax_params: Mapping) -> dict:
+    """The port's ``ScanPolicy`` state_dict from the numpy leaves of a flax
+    ``ScanPolicy`` param tree (with or without its outer "params" key):
+    ``Dense_i`` ``kernel`` (in, out) transposed to ``Linear.weight`` (out,
+    in), ``bias`` and ``log_std`` as they are.  ``Dense_0`` and ``Dense_1``
+    are the hidden layers, ``Dense_2`` the mean head and ``Dense_3`` the
+    value head, in call order.  Tensors on the CPU;
+    ``policy.load_state_dict`` copies them onto the policy's device and
+    dtype."""
+    p = flax_params.get("params", flax_params)
+    out = {}
+    for i, name in enumerate(("hidden_0", "hidden_1", "mean", "value")):
+        dense = p[f"Dense_{i}"]
+        out[f"{name}.weight"] = torch.from_numpy(np.array(dense["kernel"]).T.copy())
+        out[f"{name}.bias"] = torch.from_numpy(np.array(dense["bias"]))
+    out["log_std"] = torch.from_numpy(np.array(p["log_std"]))
+    return out
+
+
+def pure_pursuit_from_numpy(ppp: Mapping, device="cuda"):
+    """``agents.pure_pursuit.PurePursuitParams`` from the numpy leaves of
+    the JAX package's (one map's or a stack's)."""
+    device = resolve_device(device)
+    return PurePursuitParams(**{k: to_tensor(ppp[k], device)
+                                for k in PurePursuitParams._fields})

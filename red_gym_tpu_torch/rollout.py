@@ -83,6 +83,31 @@ def _select(new: NamedTuple, old: NamedTuple, idx) -> NamedTuple:
     return type(old)(*fields)
 
 
+def reset_done(cfg: SimConfig, params: EnvParams, state: EnvState, obs: Observation,
+               done, gen: torch.Generator, randomize_starts=None):
+    """Restart the done envs of a step -> (state, obs, reset_any).
+
+    Each env with ``done`` restarts from its start pose on its map (one
+    zero-action step, as ``reset``); only those envs are stepped, the others
+    keep ``state`` and ``obs``.  ``reset_any`` says whether any env restarted.
+    ``randomize_starts`` (M, A, 3) on map-stacked envs: each done env draws
+    its next map m uniformly from ``gen``, in env order, and restarts at
+    ``randomize_starts[m]``.  Under ``map_axis=0`` the caller passes the
+    state with its ``map_idx`` set to ``arange(E)``, as for the step.  Reads
+    ``done`` on the host (``torch.nonzero``)."""
+    idx = torch.nonzero(done).squeeze(1)
+    if not idx.numel():
+        return state, obs, False
+    poses = state.start_pose[idx]
+    new_maps = None if state.map_idx is None else state.map_idx[idx]
+    if randomize_starts is not None:
+        new_maps = torch.randint(0, randomize_starts.shape[0], (idx.numel(),),
+                                 generator=gen, device=idx.device, dtype=torch.int32)
+        poses = randomize_starts[new_maps]
+    r_state, r_obs, *_ = reset_unchecked(cfg, params, poses, gen, new_maps)
+    return _select(r_state, state, idx), _select(r_obs, obs, idx), True
+
+
 def make_rollout(cfg: SimConfig, params: EnvParams,
                  policy: Callable[[Observation, torch.Generator], torch.Tensor],
                  steps: int, map_axis: Optional[int] = None,
@@ -92,7 +117,8 @@ def make_rollout(cfg: SimConfig, params: EnvParams,
 
     ``policy(obs, gen) -> actions (E, A, 2)``.  With ``auto_reset`` (the
     default), a done env restarts from its start pose on its map (one
-    zero-action step, as ``reset``); only the done envs are re-stepped.
+    zero-action step, as ``reset``); only the done envs are re-stepped
+    (``reset_done``, which ``agents.ppo.PPO.collect`` shares).
     ``outs`` holds the per-step ``reward`` and ``done``, stacked (steps, E),
     ``resets``, the number of steps that reset some env, and with
     ``collect`` the per-step observations ``obs``, an Observation of
@@ -138,19 +164,10 @@ def make_rollout(cfg: SimConfig, params: EnvParams,
             if maps is not None:
                 state = state._replace(map_idx=maps)
             state, obs, reward, done, _ = step(cfg, params, state, actions, gen)
-            idx = torch.nonzero(done).squeeze(1) if auto_reset else None
-            if idx is not None and idx.numel():
-                resets += 1
-                poses = state.start_pose[idx]
-                new_maps = None if state.map_idx is None else state.map_idx[idx]
-                if randomize_starts is not None:
-                    new_maps = torch.randint(
-                        0, randomize_starts.shape[0], (idx.numel(),), generator=gen,
-                        device=idx.device, dtype=torch.int32)
-                    poses = randomize_starts[new_maps]
-                r_state, r_obs, *_ = reset_unchecked(cfg, params, poses, gen, new_maps)
-                state = _select(r_state, state, idx)
-                obs = _select(r_obs, obs, idx)
+            if auto_reset:
+                state, obs, reset_any = reset_done(cfg, params, state, obs, done, gen,
+                                                   randomize_starts)
+                resets += reset_any
             if maps is not None:
                 state = state._replace(map_idx=None)
             rewards.append(reward)

@@ -26,7 +26,9 @@ def _imports(tree):
 
 def test_package_has_sources():
     names = {os.path.relpath(p, PKG) for p in SOURCES}
-    assert {"env.py", "rollout.py", "interop.py", "ops/scan_kernels.py"} <= names
+    assert {"env.py", "rollout.py", "interop.py", "ops/scan_kernels.py",
+            "agents/pure_pursuit.py", "agents/ppo.py", "utils/checkpoint.py",
+            "examples/train_ppo.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, PKG))
