@@ -131,14 +131,43 @@ line:
      mean-policy rollout (train_ppo --eval) with its speed, crash rate and
      laps.
 
+8. the gym surface, launch counts set to 0 before and read after each:
+   - [vec_env]: ``red_gym_tpu_torch.make_vec(track_0019, 16384,
+     num_agents=2, scan_mode="fast", return_final_obs=True)`` (the library
+     defaults: prestep + the megakernel with opponents, pool noise), reset
+     at the waypoint starts, then random actions within the vehicle's action
+     bounds from a seeded generator: 10 warm-up steps, 200 timed steps
+     (env-steps/s, ms a step, peak memory, reset steps; the two kernels
+     launched once a step and once a reset step, every other kernel 0),
+     50 steps with every result copied to numpy as the gymnasium vector
+     facade does (``vec_env.numpy_step``), then 20 steps against a hand
+     loop of ``env.step`` + ``rollout.reset_done`` on a generator of the
+     same state: observations, rewards, dones, ``final_obs`` and states
+     torch.equal, with some reset step among them;
+   - [debug]: ``utils.debug.check_state`` on those states all zeros; NaN in
+     ``x`` and in ``start_pose`` on 1 % of the envs, then
+     ``quarantine_reset`` flags exactly those, restarts them finite and
+     leaves every other env torch.equal, and ``check_state`` is all zeros
+     again;
+   - [gym_compat]: ``gym_compat.make("f110_gym:f110-v0", map=track_0019,
+     num_agents=2)`` (one env, SimConfig's default exact scan, on the card)
+     through 1000 legacy 4-tuple steps, both cars driven by
+     ``agents.pure_pursuit.plan`` on the host (the reference's
+     waypoint_follow.py loop): no collision flag, the ego advanced along the
+     raceline, the march kernel launched once a step and once for the reset,
+     steps/s (one env: host-bound).
+
 ``--profile`` adds torch.profiler summaries (device kernels and device
 busy time per step) of the default, eager, bilinear, ultra and exact
-paths and of the four multi-map paths, tables of the default, bilinear,
+paths, of the four multi-map paths and of [vec_env] and [gym_compat], tables of the default, bilinear,
 ultra, exact, multimap and multimap_exact paths' kernels by device time,
 and the trainer's split of one iteration by section (``[profile]`` line of
 train_ppo.profile_iteration).
 
-The last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
+The last two lines are the kernels' JSON record (with each kernel's
+launches on the gym-surface phases that run it: ``vec_env_launches``,
+``gym_compat_launches``) and ``{"ok": true, ...}``.  Nothing here imports
+gymnasium or matplotlib.
 """
 
 from __future__ import annotations
@@ -1243,27 +1272,34 @@ def profile_steps(label, cfg, params, policy, carry, gen, table: bool,
                   roll_kw: dict) -> None:
     """Device kernels and device busy time per step over 5 steps
     (torch.profiler), and with ``table`` the kernels by device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from red_gym_tpu_torch import rollout
 
     n = 5
     run = rollout.make_rollout(cfg, params, policy, n, **roll_kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, outs = run(carry, gen)
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    outs = {}
+    ops, busy_ms, prof = device_busy(lambda: outs.update(run(carry, gen)[1]))
     say(f"profile:{label}", f"{n} steps ({outs['resets']} reset steps): "
-        f"{len(dev_events)} device ops ({len(dev_events) / n:.0f} per step), "
+        f"{ops} device ops ({ops / n:.0f} per step), "
         f"device busy {busy_ms:.2f} ms ({busy_ms / n:.2f} ms per step)")
     if table:
         for line in prof.key_averages().table(sort_by="cuda_time_total",
                                               row_limit=25).splitlines():
             print(f"[profile] {line}", flush=True)
+
+
+def device_busy(fn):
+    """Run ``fn`` under torch.profiler -> (device ops, device busy ms, the
+    profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(dev_events), sum(e.time_range.elapsed_us() for e in dev_events) / 1e3, prof
 
 
 PPO_ITERS = 3              # timed train_steps of the ppo phase, after one warm-up
@@ -1475,6 +1511,235 @@ def checkpoint_phase(ppo, pstate, states, obs) -> None:
         fail("checkpoint: non-finite eval numbers")
 
 
+PROFILE_STEPS = 5         # steps under torch.profiler with --profile
+VEC_NUMPY_STEPS = 50      # steps of the [vec_env] loop with the numpy boundary
+VEC_HAND_STEPS = 20       # steps of the [vec_env] wrapper against the hand loop
+POISON_SHARE = 0.01       # envs poisoned with NaN in the [debug] phase
+COMPAT_STEPS = 1000       # legacy-API steps of the [gym_compat] phase
+# both gym_compat cars drive at the raceline's own speeds: at the reference's
+# speed gain of 1.375 (tuned for its example map) a pure-pursuit car runs off
+# track_0019 into the wall
+COMPAT_VGAIN = 1.0
+
+
+def vec_hand_loop(vec, actions) -> tuple[dict, int, dict]:
+    """Step ``vec`` (a VecF110Env) with each of ``actions`` and, beside it, a
+    hand loop of ``env.step`` + ``rollout.reset_done`` from the same state on
+    a generator in the same state -> ({output: all torch.equal}, reset
+    steps of the hand loop, the wrapper's last obs dict).  The wrapper adds
+    nothing iff every output is equal."""
+    import torch
+
+    from red_gym_tpu_torch import env as envlib, rollout
+
+    gen = torch.Generator(device=vec.device)
+    gen.set_state(vec.gen.get_state())
+    state = vec.states
+    same = dict.fromkeys(("obs", "reward", "done", "checkpoint_done", "final_obs", "state"),
+                         True)
+    resets = 0
+    for a in actions:
+        w_obs, w_rew, w_done, w_info = vec.step(a)
+        state, obs, reward, done, info = envlib.step(vec.cfg, vec.params, state, a, gen)
+        final = obs
+        if vec.auto_reset:
+            state, obs, reset_any = rollout.reset_done(vec.cfg, vec.params, state, obs,
+                                                       done, gen)
+            resets += reset_any
+        eq = lambda d, nt: all(torch.equal(d[k], getattr(nt, k))  # noqa: E731
+                               for k in nt._fields)
+        same["obs"] &= eq(w_obs, obs)
+        same["reward"] &= torch.equal(w_rew, reward)
+        same["done"] &= torch.equal(w_done, done)
+        same["checkpoint_done"] &= torch.equal(w_info["checkpoint_done"],
+                                               info["checkpoint_done"])
+        same["final_obs"] &= eq(w_info["final_obs"], final)
+        same["state"] &= all(torch.equal(a_, b_) for a_, b_ in zip(vec.states, state)
+                             if b_ is not None)
+    return same, resets, w_obs
+
+
+def vec_env_phase(dev, profile: bool):
+    """[vec_env]: ``red_gym_tpu_torch.make_vec`` at the main path's shapes,
+    the library-default fast scan -> (launch counts, the env, its last obs
+    dict).  ``profile``: device ops and busy time of 5 more steps."""
+    import torch
+
+    import red_gym_tpu_torch
+    from red_gym_tpu_torch import assets, env as envlib, vec_env
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vec = red_gym_tpu_torch.make_vec(assets.named_map_yaml(TRACK), ENVS, num_agents=AGENTS,
+                                     scan_mode="fast", return_final_obs=True)
+    torch.cuda.synchronize()
+    say("vec_env", f"make_vec({TRACK}, {ENVS}, num_agents={AGENTS}, scan_mode='fast', "
+        f"return_final_obs=True): {vec.cfg.num_beams} beams, {vec.cfg.dtype}, on "
+        f"{vec.device}; {time.perf_counter() - t0:.2f} s (map, EDT, texture marched on "
+        f"the card)")
+    lo, hi = (torch.as_tensor(b, device=dev) for b in envlib.action_bounds(vec.params.vehicle))
+    agen = torch.Generator(device=dev).manual_seed(2)
+    parts = (WARMUP_STEPS, STEPS, VEC_NUMPY_STEPS, PROFILE_STEPS, VEC_HAND_STEPS)
+    acts = lo + (hi - lo) * torch.rand((sum(parts), ENVS, AGENTS, 2), generator=agen,
+                                       device=dev)
+    warm_acts, timed_acts, numpy_acts, prof_acts, hand_acts = torch.split(acts, parts)
+    vec.reset(assets.waypoint_start_poses(TRACK, AGENTS))
+    for a in warm_acts:
+        vec.step(a)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    dones = []
+    t0 = time.perf_counter()
+    for a in timed_acts:
+        dones.append(vec.step(a)[2])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    dones = torch.stack(dones)
+    resets = int(dones.any(dim=1).sum())
+    say("vec_env", f"{STEPS} steps of {ENVS} envs x {AGENTS} agents x {vec.cfg.num_beams} "
+        f"beams, random actions within the vehicle's action bounds, auto-reset, "
+        f"final_obs: {seconds:.3f} s, {ENVS * STEPS / seconds:.0f} env-steps/s "
+        f"({1e3 * seconds / STEPS:.3f} ms/step), peak device memory "
+        f"{peak / 2**30:.2f} GiB; {int(dones.sum())} episodes ended, {resets} of {STEPS} "
+        f"steps reset some env; launches {counts}")
+    check_counts("vec_env", counts, ("mega_edge_ttc[opp]", "prestep"), STEPS + resets)
+    t0 = time.perf_counter()
+    for a in numpy_acts:
+        vec_env.numpy_step(*vec.step(a))
+    seconds = time.perf_counter() - t0
+    say("vec_env", f"the same loop with every step's obs, final_obs, reward and dones "
+        f"copied to numpy (vec_env.numpy_step, what gym_vector.F110VectorEnv returns): "
+        f"{VEC_NUMPY_STEPS} steps, {ENVS * VEC_NUMPY_STEPS / seconds:.0f} env-steps/s "
+        f"({1e3 * seconds / VEC_NUMPY_STEPS:.3f} ms/step)")
+    if profile:
+        dones = []
+        ops, busy, _ = device_busy(lambda: dones.extend(vec.step(a)[2] for a in prof_acts))
+        say("profile:vec_env", f"{PROFILE_STEPS} steps ({sum(bool(d.any()) for d in dones)} "
+            f"reset steps): {ops / PROFILE_STEPS:.0f} device ops, device busy "
+            f"{busy / PROFILE_STEPS:.2f} ms a step")
+    same, hand_resets, obs = vec_hand_loop(vec, hand_acts)
+    say("vec_env", f"{VEC_HAND_STEPS} steps against env.step + rollout.reset_done on a "
+        f"generator of the same state ({hand_resets} reset steps): torch.equal {same}")
+    if not all(same.values()):
+        fail(f"vec_env: the wrapper differs from the hand loop: {same}")
+    if hand_resets == 0:
+        fail("vec_env: no auto-reset in the hand-loop window")
+    scans = obs["scans"]
+    if not torch.isfinite(scans).all() or tuple(scans.shape) != (ENVS, AGENTS, BEAMS):
+        fail(f"vec_env: scans {tuple(scans.shape)}, finite {bool(torch.isfinite(scans).all())}")
+    return counts, vec, obs
+
+
+def debug_phase(vec, obs_dict, dev) -> None:
+    """[debug]: check_state on the [vec_env] states, then NaN in x and in
+    start_pose on 1 % of the envs, and quarantine_reset."""
+    import torch
+
+    from red_gym_tpu_torch.env import Observation
+    from red_gym_tpu_torch.utils import debug
+
+    cfg, params, state = vec.cfg, vec.params, vec.states
+    rep = {k: int(v) for k, v in debug.check_state(cfg, params, state).items()}
+    say("debug", f"check_state on the {ENVS} envs of [vec_env]: {rep}")
+    if any(rep.values()):
+        fail(f"debug: check_state reports violations on healthy states: {rep}")
+    g = torch.Generator(device=dev).manual_seed(3)
+    bad = torch.randperm(ENVS, generator=g, device=dev)[:max(1, int(POISON_SHARE * ENVS))]
+    x, start = state.x.clone(), state.start_pose.clone()
+    x[bad, 0, 3] = float("nan")
+    start[bad, 1, 2] = float("nan")
+    poisoned = state._replace(x=x, start_pose=start)
+    obs = Observation(**{k: obs_dict[k] for k in Observation._fields})
+    n_bad = int(debug.check_state(cfg, params, poisoned)["nonfinite"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fixed, fobs, healthy = debug.quarantine_reset(cfg, params, poisoned, obs, vec.gen)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    want = torch.ones(ENVS, dtype=torch.bool, device=dev)
+    want[bad] = False
+    flagged_exactly = torch.equal(healthy, want)
+    finite = bool(torch.isfinite(fixed.x[bad]).all() and torch.isfinite(fixed.start_pose).all())
+    untouched = all(torch.equal(a[healthy], b[healthy])
+                    for a, b in [*zip(fixed, poisoned), *zip(fobs, obs)] if b is not None)
+    after = {k: int(v) for k, v in debug.check_state(cfg, params, fixed).items()}
+    say("debug", f"{len(bad)} envs poisoned (NaN in x and in start_pose; {n_bad} non-finite "
+        f"values): quarantine_reset {ms:.1f} ms; flagged exactly those {flagged_exactly}, "
+        f"restarted finite {finite}, every other env torch.equal {untouched}; check_state "
+        f"after {after}")
+    if not (flagged_exactly and finite and untouched) or any(after.values()):
+        fail("debug: quarantine_reset did not restart exactly the poisoned envs")
+
+
+def gym_compat_phase(dev, profile: bool) -> dict:
+    """[gym_compat]: the reference script's loop (examples/waypoint_follow.py:
+    272-287) through gym_compat.make: one env of two cars in SimConfig's
+    default exact scan on the card, both driven by pure pursuit on the host
+    -> launch counts.  ``profile``: device ops and busy time of 5 more
+    steps."""
+    import numpy as np
+    import torch
+
+    from red_gym_tpu_torch import assets, gym_compat
+    from red_gym_tpu_torch.agents import pure_pursuit as pp
+
+    env = gym_compat.make("f110_gym:f110-v0", map=assets.named_map_yaml(TRACK),
+                          num_agents=AGENTS)
+    if env.cfg.scan_mode != "exact" or env.device.type != "cuda":
+        fail(f"gym_compat: {env.cfg.scan_mode} scan on {env.device}")
+    wps = pp.load_waypoints_csv(assets.waypoints_csv(TRACK), device="cpu")
+    ppp = pp.make_params(wps, vgain=COMPAT_VGAIN)
+    traj, n_wp = wps[:, :2], wps.shape[0]
+
+    def raceline_index(obs):
+        px, py = (torch.as_tensor(obs[k], dtype=torch.float64) for k in ("poses_x", "poses_y"))
+        return pp.nearest_point(px, py, traj)[3]
+
+    def drive(obs):
+        speed, steer = pp.plan(*(torch.as_tensor(obs[k], dtype=torch.float64)
+                                 for k in ("poses_x", "poses_y", "poses_theta")), ppp)
+        return env.step(np.stack([steer.numpy(), speed.numpy()], axis=-1))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    obs, _, done, _ = env.reset(assets.waypoint_start_poses(TRACK, AGENTS))
+    prev, advance, hits = raceline_index(obs), torch.zeros(AGENTS, dtype=torch.long), 0
+    t0 = time.perf_counter()
+    for i in range(COMPAT_STEPS):
+        obs, reward, done, info = drive(obs)
+        idx = raceline_index(obs)
+        advance += torch.remainder(idx - prev + n_wp // 2, n_wp) - n_wp // 2
+        prev = idx
+        hits += int(obs["collisions"].sum())
+        if done:
+            break
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = i + 1
+    say("gym_compat", f"gym_compat.make('f110_gym:f110-v0', map={TRACK}, num_agents="
+        f"{AGENTS}): one env, exact scan, {env.cfg.num_beams} beams, {env.cfg.dtype}, on "
+        f"{env.device}; {steps} legacy 4-tuple steps with pure pursuit (vgain "
+        f"{COMPAT_VGAIN}) on the host in {seconds:.2f} s: {steps / seconds:.1f} steps/s "
+        f"(one env: host-bound, the card idles); raceline advance {advance.tolist()} of "
+        f"{n_wp} waypoints, laps {obs['lap_counts'].tolist()}, collision flags {hits}; "
+        f"launches {counts}")
+    if done or hits:
+        fail(f"gym_compat: a collision at step {steps} (collision flags {hits})")
+    if int(advance[0]) < n_wp // 10:
+        fail(f"gym_compat: the ego advanced {int(advance[0])} of {n_wp} waypoints")
+    check_counts("gym_compat", counts, ("march[beams]",), steps + 1)
+    if profile:
+        box = [obs]
+        ops, busy, _ = device_busy(lambda: [box.append(drive(box[-1])[0])
+                                            for _ in range(PROFILE_STEPS)])
+        say("profile:gym_compat", f"{PROFILE_STEPS} steps: {ops / PROFILE_STEPS:.0f} device "
+            f"ops, device busy {1e3 * busy / PROFILE_STEPS:.1f} us a step")
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1624,6 +1889,13 @@ def main() -> None:
     ppo_once("ppo_multimap_pursuit", ["--multi-map", "--opponents", "pursuit"],
              mm["default"], dev, "theta_shuffle_blend_edge_ttc_opp", after=pursuit_progress)
     checkpoint_phase(ppo, pstate, states, obs)
+    del ppo, pstate, states, obs, mm
+
+    # the gym surface: VecF110Env, the state health checks, gym_compat
+    vec_counts, vec, vec_obs = vec_env_phase(dev, args.profile)
+    debug_phase(vec, vec_obs, dev)
+    del vec, vec_obs
+    compat_counts = gym_compat_phase(dev, args.profile)
 
     mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
                 "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}
@@ -1632,12 +1904,13 @@ def main() -> None:
         {"name": "mega_edge_ttc", **mega_src,
          "launches": eager["mega_edge_ttc[plain]"], **mega["plain"]},
         {"name": "mega_edge_ttc+opp", **mega_src,
-         "launches": default["mega_edge_ttc[opp]"], **mega["opp"]},
+         "launches": default["mega_edge_ttc[opp]"],
+         "vec_env_launches": vec_counts["mega_edge_ttc[opp]"], **mega["opp"]},
         {"name": "mega_edge_ttc+opp+pool_rot", **mega_src,
          "launches": rot["mega_edge_ttc[opp+pool_rot]"], **mega["opp+pool_rot"]},
         {"name": "prestep", "route": "cuda", "source": "red_gym_tpu_torch/csrc/prestep.cu",
          "replaces": "red_gym_tpu/ops/pallas_state.py:134",
-         "launches": default["prestep"], **pre},
+         "launches": default["prestep"], "vec_env_launches": vec_counts["prestep"], **pre},
     ]
     for name, line, counts in (
             ("theta_shuffle_blend_edge_ttc", 461, bil_ttc),
@@ -1659,7 +1932,8 @@ def main() -> None:
                     "source": "red_gym_tpu_torch/csrc/march.cu",
                     "replaces": "red_gym_tpu/ops/scan.py:153",
                     "note": "not a TPU kernel: replaces the lax.while_loop of the march",
-                    "launches": exact["march[beams]"], **march})
+                    "launches": exact["march[beams]"],
+                    "gym_compat_launches": compat_counts["march[beams]"], **march})
     records.append({"name": "march+stacked", "route": "cuda",
                     "source": "red_gym_tpu_torch/csrc/march.cu",
                     "replaces": "red_gym_tpu/ops/scan.py:153",

@@ -104,6 +104,13 @@ class Observation(NamedTuple):
     lap_times: torch.Tensor
     lap_counts: torch.Tensor
 
+    def to_legacy_dict(self, ego_idx: int = 0) -> dict:
+        """The reference's obs dict (f110_env.py:53-99) of env 0: each
+        field's (A, ...) row as a numpy array on the host, and ``ego_idx``."""
+        d = {k: getattr(self, k)[0].cpu().numpy() for k in self._fields}
+        d["ego_idx"] = ego_idx
+        return d
+
 
 def make_params(cfg: SimConfig, map_yaml_path: str, map_ext: str = ".png",
                 vehicle: Optional[VehicleParams] = None,
@@ -394,6 +401,22 @@ def step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     return state, _build_obs(state, scans), reward, done, {"checkpoint_done": finished}
 
 
+def staggered_start_poses(num_agents: int) -> np.ndarray:
+    """Default (A, 3) grid spawn: agents staggered in 0.6 m ranks behind the
+    reference's example start pose (examples/config_example_map.yaml sx, sy,
+    stheta).  The default of the gymnasium facades."""
+    return np.array([[0.7 - 0.6 * (i // 2), -1.0 * (i % 2), 1.37079632679]
+                     for i in range(num_agents)])
+
+
+def action_bounds(vehicle: VehicleParams) -> tuple[np.ndarray, np.ndarray]:
+    """(low, high) of one agent's [steer, speed] action, float32 numpy, from
+    the vehicle limits (the widest over per-agent fields)."""
+    lo = np.array([float(vehicle.s_min.min()), float(vehicle.v_min.min())], np.float32)
+    hi = np.array([float(vehicle.s_max.max()), float(vehicle.v_max.max())], np.float32)
+    return lo, hi
+
+
 def reset(cfg: SimConfig, params: EnvParams, poses, gen, map_idx=None):
     """Reset to poses (E, A, 3) and make the first observation by stepping
     once with zero actions, as the reference does (f110_env.py:304-347).
@@ -418,8 +441,11 @@ class F110Env:
     4-tuple with the reference's obs dict keys (f110_env.py:53-99).  Its
     config is built as the JAX package's ``F110Env`` builds it, so with no
     ``scan_mode`` given it runs the exact scan, SimConfig's default.
-    ``tmap`` takes an already loaded map in place of ``map``.  Rendering is
-    not ported.  It runs on the card unless ``device="cpu"``."""
+    ``tmap`` takes an already loaded map in place of ``map``.  ``render``
+    draws the env on the host with matplotlib (``render/viewer.py``).  It
+    runs on the card unless ``device="cpu"``."""
+
+    metadata = {"render.modes": ["human", "human_fast"]}
 
     def __init__(self, map: str | None = None, map_ext: str = ".png",
                  params: dict | VehicleParams | None = None,
@@ -446,6 +472,8 @@ class F110Env:
         self.seed = seed
         self.gen = torch.Generator(device=self.device)
         self.state: EnvState | None = None
+        self.render_callbacks = []
+        self._renderer = None
 
     def reset(self, poses):
         self.gen.manual_seed(self.seed)
@@ -490,11 +518,27 @@ class F110Env:
         if self.cfg.scan_mode == "fast":
             rtex = scan_fast.build_range_texture(tmap, self.cfg)
         self.params = self.params._replace(tmap=tmap, rtex=rtex)
+        self._renderer = None  # the map raster changed
+
+    def add_render_callback(self, fn):
+        """``fn(viewer)`` runs before each frame (the viewer's draw_* API)."""
+        self.render_callbacks.append(fn)
+
+    def render(self, mode: str = "human"):
+        """Draw env 0 of the current state with the host viewer (the
+        reference's EnvRenderer, rendering.py:50-335); "human" and
+        "human_fast" draw alike, as in JAX."""
+        from red_gym_tpu_torch.render.viewer import Viewer
+
+        if self._renderer is None:
+            self._renderer = Viewer(self.params, self.cfg)
+        self._renderer.update(self.state)
+        for cb in self.render_callbacks:
+            cb(self._renderer)
+        self._renderer.draw(block=False)
 
     def _legacy(self, obs: Observation) -> dict:
-        d = {k: getattr(obs, k)[0].cpu().numpy() for k in obs._fields}
-        d["ego_idx"] = self.cfg.ego_idx
-        return d
+        return obs.to_legacy_dict(self.cfg.ego_idx)
 
     @staticmethod
     def _info(info) -> dict:

@@ -1,8 +1,11 @@
-"""Vehicle body corners and pairwise rectangle collision from poses.
+"""Vehicle body corners and pairwise collision checks.
 
 PyTorch counterpart of ``red_gym_tpu/ops/collision.py``.  The reference's
-GJK test (collision_models.py:34-212) becomes the separating-axis test for
-two rectangles in closed form; touching bodies count as not colliding.
+GJK test (collision_models.py:34-212) becomes the separating-axis test (SAT):
+for two convex quads given by their vertices (``collision``,
+``collision_multiple``), and for two rectangles in closed form straight from
+poses (``pairwise_hits_from_poses``, the env step's).  Touching bodies count
+as not colliding.
 """
 
 from __future__ import annotations
@@ -61,3 +64,53 @@ def pairwise_hits_from_poses(poses, length, width):
         if not (a_n % 2 == 0 and k == a_n // 2):
             hits = hits | torch.roll(o, k, dims=-1)
     return hits
+
+
+def _dot(u, v):
+    """u . v over the last axis of length 2: the second product fused into
+    the sum (``addcmul``), the rounding of the JAX package's einsum on the
+    CPU, so that bodies on the verge of touching get the same answer."""
+    return torch.addcmul(u[..., 0] * v[..., 0], u[..., 1], v[..., 1])
+
+
+def _project_interval(verts, axis):
+    """Min/max of vertices (..., 4, 2) projected on axis (..., 2)."""
+    proj = _dot(verts, axis[..., None, :])
+    return proj.amin(dim=-1), proj.amax(dim=-1)
+
+
+def collision(verts1, verts2):
+    """SAT overlap test for two convex quads (..., 4, 2) -> bool (...).
+
+    The reference's GJK boolean (collision_models.py:113-182): True iff the
+    interiors intersect; touching contact counts as no collision.  The
+    candidate separating axes are the edge normals of both bodies."""
+    def edge_normals(v):
+        e = torch.roll(v, -1, dims=-2) - v                      # (..., 4, 2)
+        return torch.stack([-e[..., 1], e[..., 0]], dim=-1)     # perpendicular
+
+    verts1, verts2 = torch.broadcast_tensors(verts1, verts2)
+    axes = torch.cat([edge_normals(verts1), edge_normals(verts2)], dim=-2)
+    p1 = _dot(verts1[..., None, :, :], axes[..., :, None, :])  # (..., 8, 4)
+    p2 = _dot(verts2[..., None, :, :], axes[..., :, None, :])
+    separated = ((p1.amax(-1) <= p2.amin(-1))
+                 | (p2.amax(-1) <= p1.amin(-1)))                # per axis
+    return ~torch.any(separated, dim=-1)
+
+
+def collision_multiple(vertices):
+    """All-pairs collision over bodies (..., N, 4, 2) -> (collisions (..., N),
+    collision_idx (..., N)), both in the vertices' dtype, with the
+    reference's conventions (collision_models.py:184-212): the index is the
+    largest-index colliding partner, or -1."""
+    n = vertices.shape[-3]
+    vi = vertices[..., :, None, :, :]   # (..., N, 1, 4, 2)
+    vj = vertices[..., None, :, :, :]   # (..., 1, N, 4, 2)
+    hits = collision(vi, vj)            # (..., N, N)
+    hits = hits & ~torch.eye(n, dtype=torch.bool, device=vertices.device)
+    any_hit = torch.any(hits, dim=-1)
+    idx = torch.arange(n, device=vertices.device)
+    partner = torch.amax(torch.where(hits, idx, -1), dim=-1)
+    collisions = any_hit.to(vertices.dtype)
+    collision_idx = torch.where(any_hit, partner, -1).to(vertices.dtype)
+    return collisions, collision_idx

@@ -24,7 +24,10 @@ Multi-map batches: the march kernel's stacked form (map indices 0 to
 M - 1, rays leaving their map) bit-equal to its twin and to each map marched
 alone, the megakernel on a stacked texture at the scan bar and equal to
 each map alone, and multi-map resets and steps on the GPU against the CPU
-in the default, bilinear, ultra and exact modes.
+in the default, bilinear, ultra and exact modes.  ``vec_env.VecF110Env`` in
+the library-default fast scan: the megakernel with opponents and the state
+kernel launched once a step and once a reset step, and every output
+torch.equal to a hand loop of ``env.step`` + ``rollout.reset_done``.
 """
 
 import dataclasses
@@ -34,9 +37,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (close_poses, map_free_poses, map_of_stack, params_of_stack,
-                        per_map_poses, random_free_poses, random_states)
-from red_gym_tpu_torch import assets, env, rollout
+from chip_smoke import (close_poses, launch_counts, map_free_poses, map_of_stack,
+                        params_of_stack, per_map_poses, random_free_poses, random_states,
+                        reset_launch_counts, vec_hand_loop)
+from red_gym_tpu_torch import assets, env, rollout, vec_env
 from red_gym_tpu_torch.config import Integrator, SimConfig
 from red_gym_tpu_torch.maps.loader import load_map, stack_maps
 from red_gym_tpu_torch.ops import agent_scan, collision, march_kernels, scan
@@ -1244,3 +1248,49 @@ def test_multimap_rollout_on_gpu_matches_cpu(gpu_stack_fast, mode):
         assert float(torch.quantile(err.flatten(), 0.99)) < 1e-3
         assert float((err > 4 * cell).float().mean()) < 2e-3
         assert torch.equal(sg.collisions.cpu(), sc.collisions)
+
+
+# ---------------------------------------------------------------------------
+# VecF110Env on the card
+# ---------------------------------------------------------------------------
+
+VEC_ENVS = 1024
+
+
+@pytest.fixture(scope="module")
+def gpu_vec():
+    """A VecF110Env of 1024 envs in the library-default fast scan after 150
+    steps of random actions within the action bounds (past the first wave
+    of crashes), and 30 more actions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
+        vec = vec_env.VecF110Env(assets.named_map_yaml(TRACK), VEC_ENVS, num_agents=2,
+                                 scan_mode="fast", rt_pose_stride=8, return_final_obs=True,
+                                 device="cuda")
+    lo, hi = (torch.as_tensor(b, device="cuda") for b in env.action_bounds(vec.params.vehicle))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    acts = lo + (hi - lo) * torch.rand((180, VEC_ENVS, 2, 2), generator=gen, device="cuda")
+    vec.reset(assets.waypoint_start_poses(TRACK, 2))
+    for a in acts[:150]:
+        vec.step(a)
+    return vec, acts[150:]
+
+
+def test_vec_env_launches_its_kernels_once_a_step(gpu_vec):
+    vec, acts = gpu_vec
+    reset_launch_counts()
+    resets = sum(bool(vec.step(a)[2].any()) for a in acts[:10])
+    counts = launch_counts()
+    for name, n in counts.items():
+        want = 10 + resets if name in ("mega_edge_ttc[opp]", "prestep") else 0
+        assert n == want, (name, n, want)
+
+
+def test_vec_env_equals_the_hand_loop(gpu_vec):
+    vec, acts = gpu_vec
+    same, resets, obs = vec_hand_loop(vec, acts[10:])
+    assert all(same.values()), same
+    assert resets > 0, "no auto-reset in the window"
+    assert obs["scans"].is_cuda and torch.isfinite(obs["scans"]).all()

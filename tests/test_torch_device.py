@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from red_gym_tpu_torch import assets, env, interop
+import red_gym_tpu_torch
+from red_gym_tpu_torch import assets, env, gym_compat, interop, vec_env
 from red_gym_tpu_torch.config import SimConfig, VehicleParams, resolve_device
 from red_gym_tpu_torch.maps import loader
 from red_gym_tpu_torch.ops import scan
@@ -31,6 +32,7 @@ ENTRY_POINTS = {
     "interop.params_from_numpy": interop.params_from_numpy,
     "interop.texture_from_numpy": interop.texture_from_numpy,
     "interop.state_from_numpy": interop.state_from_numpy,
+    "vec_env.VecF110Env": vec_env.VecF110Env,
 }
 
 CALLS_WITHOUT_DEVICE = {
@@ -47,7 +49,23 @@ CALLS_WITHOUT_DEVICE = {
     "interop.params_from_numpy": lambda: interop.params_from_numpy(CFG, {}, {}, {}, {}),
     "interop.texture_from_numpy": lambda: interop.texture_from_numpy(CFG, {}),
     "interop.state_from_numpy": lambda: interop.state_from_numpy({}),
+    "vec_env.VecF110Env": lambda: vec_env.VecF110Env(assets.named_map_yaml(TRACK), 2,
+                                                     num_beams=270),
+    "make": lambda: red_gym_tpu_torch.make(assets.named_map_yaml(TRACK), num_beams=270),
+    "make_vec": lambda: red_gym_tpu_torch.make_vec(assets.named_map_yaml(TRACK), 2,
+                                                   num_beams=270),
+    "gym_compat.make": lambda: gym_compat.make("f110_gym:f110-v0",
+                                               map=assets.named_map_yaml(TRACK), num_beams=270),
+    "gym_adapter.F110GymnasiumEnv": lambda: _gymnasium().make(
+        "red_gym_tpu_torch/f110-v0", map=assets.named_map_yaml(TRACK), num_beams=270),
+    "gym_vector.F110VectorEnv": lambda: _gymnasium().make_vec(
+        "red_gym_tpu_torch/f110-v0", num_envs=2, map=assets.named_map_yaml(TRACK),
+        num_beams=270),
 }
+
+
+def _gymnasium():
+    return pytest.importorskip("gymnasium")
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))

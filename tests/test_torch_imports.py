@@ -1,5 +1,7 @@
 """red_gym_tpu_torch stands alone: no JAX, nothing of red_gym_tpu, and no
-Triton import at module level (it exists only on the GPU machine)."""
+Triton import at module level (it exists only on the GPU machine).
+gymnasium, which the GPU machine lacks too, is imported only by the
+gymnasium modules, and matplotlib only inside the viewer's functions."""
 
 import ast
 import glob
@@ -28,7 +30,9 @@ def test_package_has_sources():
     names = {os.path.relpath(p, PKG) for p in SOURCES}
     assert {"env.py", "rollout.py", "interop.py", "ops/scan_kernels.py",
             "agents/pure_pursuit.py", "agents/ppo.py", "utils/checkpoint.py",
-            "examples/train_ppo.py"} <= names
+            "examples/train_ppo.py", "ops/collision.py", "vec_env.py",
+            "gym_compat.py", "_registration.py", "gym_adapter.py", "gym_vector.py",
+            "render/viewer.py", "utils/debug.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, PKG))
@@ -40,3 +44,22 @@ def test_no_forbidden_imports(path):
         assert root not in FORBIDDEN, f"{path} imports {name}"
         assert not (root == "triton" and at_top), \
             f"{path} imports triton at module level"
+
+
+GYMNASIUM_MODULES = {"_registration.py", "gym_adapter.py", "gym_vector.py"}
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, PKG))
+def test_gymnasium_and_matplotlib_stay_in_their_modules(path):
+    """The torch-only core (the env, VecF110Env, gym_compat, the debug
+    helpers) runs where neither gymnasium nor matplotlib is installed."""
+    rel = os.path.relpath(path, PKG)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for name, at_top in _imports(tree):
+        root = name.split(".")[0]
+        if root == "gymnasium":
+            assert rel in GYMNASIUM_MODULES, f"{rel} imports {name}"
+        if root == "matplotlib":
+            assert rel == "render/viewer.py" and not at_top, \
+                f"{rel} imports {name}" + (" at module level" if at_top else "")
