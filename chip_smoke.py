@@ -157,6 +157,32 @@ line:
      raceline, the march kernel launched once a step and once for the reset,
      steps/s (one env: host-bound).
 
+9. the bitmap-SAC stack, launch counts set to 0 before and read after
+   each:
+   - [rasterize]: the rasterizer's kernels (csrc/rasterize.cu; they replace
+     XLA's fused broadcast of red_gym_tpu/ops/rasterize.py, no TPU kernel)
+     on 64 scans of 1080 beams from the exact scan at random free poses of
+     track_0019, 600 beams drawn on 256 x 256: the fill, the polygon
+     outline and the rays torch.equal to their twins on the card, times,
+     bounds (operations counted from this run's crossings), registers and
+     spills; lidar_to_bitmap in FILL, POLYGON and RAYS on the card equal to
+     the same call on the CPU (4 images);
+   - [sac_bitmap]: train_sac_bitmap_scale's trainer at its defaults (64
+     envs, 256 px, bf16 CNN, batch 64, a 25,000-transition uint8 replay,
+     reward_mode "fixed"): one warm-up iteration and one update iteration
+     of 32 steps; the fill, segment and march kernels launched once a
+     planning step and once a reset step, every other kernel 0; losses
+     and rewards finite; the replay's size and ptr; collection
+     env-steps/s, ms a SAC update, peak memory; a torch.profiler summary
+     of 3 planning steps (device ops, busy and wall ms a step);
+   - [sac_scale]: train_sac_scale's trainer at 512 envs x 1080 beams
+     (spectral fast scan): one warm-up and one update iteration; kernel 5
+     launched once a step and once a reset step; losses finite;
+     env-steps/s;
+   - [sac]: train_sac (one env) for 60 steps, updates every 10 after 20;
+     the kernels once a step and once a reset; its checkpoint restored
+     torch.equal and the restored actor's mean action equal.
+
 ``--profile`` adds torch.profiler summaries (device kernels and device
 busy time per step) of the default, eager, bilinear, ultra and exact
 paths, of the four multi-map paths and of [vec_env] and [gym_compat], tables of the default, bilinear,
@@ -503,6 +529,8 @@ KERNEL_FUNCTIONS = {
     "theta_spectral_ttc": ("theta_spectral", "theta_spectral_kernel<__nv_bfloat16, true>"),
     "march": ("march", "march_beams_kernel<float>"),
     "march+stacked": ("march", "march_beams_stacked_kernel<float>"),
+    "fill_polygon": ("rasterize", "fill_polygon_kernel"),
+    "draw_segments": ("rasterize", "draw_segments_kernel"),
 }
 
 
@@ -1155,8 +1183,8 @@ def multimap_mega_phase(cfg, params, yamls, midx, dev) -> None:
 
 
 def launch_counts() -> dict:
-    from red_gym_tpu_torch.ops import (blend_kernels, march_kernels, scan_kernels,
-                                       spectral_kernels, state_kernels)
+    from red_gym_tpu_torch.ops import (blend_kernels, march_kernels, raster_kernels,
+                                       scan_kernels, spectral_kernels, state_kernels)
 
     return {**{f"mega_edge_ttc[{k}]": v
                for k, v in scan_kernels.mega_edge_ttc.launches.items()},
@@ -1164,13 +1192,16 @@ def launch_counts() -> dict:
             **{fn.__name__: fn.launches for fn in blend_kernels.KERNELS},
             "theta_spectral_ttc": spectral_kernels.theta_spectral_ttc.launches,
             "march[rays]": march_kernels.march.launches,
-            "march[beams]": march_kernels.march_beams.launches}
+            "march[beams]": march_kernels.march_beams.launches,
+            "fill_polygon": raster_kernels.fill_polygon.launches,
+            "draw_segments": raster_kernels.draw_segments.launches}
 
 
 def reset_launch_counts() -> None:
-    from red_gym_tpu_torch.ops import (blend_kernels, march_kernels, scan_kernels,
-                                       spectral_kernels, state_kernels)
+    from red_gym_tpu_torch.ops import (blend_kernels, march_kernels, raster_kernels,
+                                       scan_kernels, spectral_kernels, state_kernels)
 
+    raster_kernels.reset_launches()
     march_kernels.reset_launches()
     scan_kernels.reset_launches()
     state_kernels.prestep.launches = 0
@@ -1740,6 +1771,309 @@ def gym_compat_phase(dev, profile: bool) -> dict:
     return counts
 
 
+RASTER_ENVS = 64          # images of the [rasterize] phase: the bitmap trainer's envs
+RASTER_CHECK_ENVS = 4     # of them drawn again on the CPU for the whole-call check
+# the rasterizer's operations, from csrc/rasterize.cu, at the float32 rate:
+# the fill's edge pass is 3 a (row, edge) (two compares and their xor) and 7
+# a crossing edge (the denominator's compare and select, three
+# subtractions, a product, a division and a sum); its pixel pass 2 a
+# (pixel, crossing edge) (a compare and a count); the draw 15 a sample
+# (1 - t; per coordinate a product, a fused multiply-add counted as 2, a
+# rint and a 2-sided clip; the pixel index)
+FILL_EDGE_OPS, FILL_CROSS_OPS, FILL_PIXEL_OPS, DRAW_SAMPLE_OPS = 3, 7, 2, 15
+SAC_PROFILE_STEPS = 3     # planning steps under torch.profiler in [sac_bitmap]
+# the planning step's profiler ranges (agents/planning_env.py) and the policy's
+PLAN_RANGES = ("sac/policy", "plan/mpc", "plan/env_step", "plan/bitmap", "plan/reward")
+SAC_STEPS, SAC_UPDATE_AFTER, SAC_UPDATE_EVERY = 60, 20, 10
+
+
+def raster_points(dev):
+    """(scans (E, 1080), points (E, 600, 2) int32): RASTER_ENVS scans of the
+    exact scan at random free poses of TRACK, and their 600 endpoints on
+    256 x 256 at 10 px/m (lidar_to_bitmap's defaults)."""
+    import torch
+
+    from red_gym_tpu_torch import assets, env
+    from red_gym_tpu_torch.config import SimConfig
+    from red_gym_tpu_torch.ops import rasterize, scan
+
+    cfg = SimConfig(num_agents=1, num_beams=BEAMS, dtype="float32")
+    params = env.make_params(cfg, assets.named_map_yaml(TRACK), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    poses = map_free_poses(params.tmap, RASTER_ENVS, gen)[:, None]
+    scans = scan.trace(poses, params.tables, params.tmap, cfg)[:, 0]
+    return scans, rasterize.beam_endpoints(scans, 600, (256, 256), 10.0)
+
+
+def fill_bound(points, h: int, w: int) -> dict:
+    """The fill's bound: its operations counted on this run's polygons (the
+    crossing edges of each row) against its bytes (points read, the mask
+    written)."""
+    import torch
+
+    ys = points[..., 1].float()
+    y2 = torch.roll(ys, -1, dims=-1)
+    rows = torch.arange(h, dtype=torch.float32, device=points.device)[:, None]
+    crossings = sum(int(((y[None] > rows) != (z[None] > rows)).sum()) for y, z in zip(ys, y2))
+    n, k = points.shape[:2]
+    ops = (FILL_EDGE_OPS * n * h * k + FILL_CROSS_OPS * crossings
+           + FILL_PIXEL_OPS * crossings * w)
+    return {**bound(nbytes(points) + n * h * w, f32=float(ops)), "crossings": crossings}
+
+
+def rasterize_phase(dev, reports) -> dict:
+    """[rasterize]: the fill and segment kernels against their twins at
+    RASTER_ENVS x 256 x 256 (FILL's fill and outline, RAYS' rays), times and
+    bounds; lidar_to_bitmap on the card equal to the CPU's in all three
+    modes -> {"fill_polygon": record, "draw_segments": record}."""
+    import torch
+
+    from red_gym_tpu_torch.ops import raster_kernels as rk, rasterize
+
+    h = w = 256
+    scans, pts = raster_points(dev)
+    t = rk.segment_t(dev)
+    rolled = torch.roll(pts, -1, dims=-2)
+    center = torch.tensor([h // 2, w // 2], dtype=torch.int32, device=dev).expand_as(pts)
+    n, k = pts.shape[:2]
+
+    fill_k, fill_r = rk.fill_polygon(pts, (h, w)), rk.fill_polygon_reference(pts, (h, w))
+    masks = {}
+    for label, starts, ends in (("outline", pts, rolled), ("rays", center, pts)):
+        mk = rk.draw_segments(torch.zeros((n, h, w), dtype=torch.uint8, device=dev),
+                              starts, ends, t)
+        mr = rk.draw_segments_reference(torch.zeros_like(mk), starts, ends, t)
+        masks[label] = (mk, mr)
+    torch.cuda.synchronize()
+    checks = {"fill": torch.equal(fill_k, fill_r),
+              **{label: torch.equal(a, b) for label, (a, b) in masks.items()}}
+    share = {"inside": float(fill_k.float().mean()),
+             **{label: float(m[0].float().mean()) for label, m in masks.items()}}
+    say("rasterize", f"{n} scans x {BEAMS} beams of the exact scan on {TRACK}, {k} drawn on "
+        f"{h} x {w}: kernels torch.equal to their twins {checks}; share of the canvas "
+        f"{ {key: round(v, 4) for key, v in share.items()} }")
+    if not all(checks.values()):
+        fail(f"rasterize: a kernel differs from its twin: {checks}")
+    if not 0.01 < share["inside"] < 0.99:
+        fail("rasterize: degenerate fill")
+
+    few = scans[:RASTER_CHECK_ENVS]
+    same = {}
+    for mode in ("FILL", "POLYGON", "RAYS"):
+        same[mode] = torch.equal(rasterize.lidar_to_bitmap(few, draw_mode=mode).cpu(),
+                                 rasterize.lidar_to_bitmap(few.cpu(), draw_mode=mode))
+    say("rasterize", f"lidar_to_bitmap on the card equal to the CPU's on {RASTER_CHECK_ENVS} "
+        f"scans: {same}")
+    if not all(same.values()):
+        fail(f"rasterize: lidar_to_bitmap on the card differs from the CPU: {same}")
+
+    lims = fill_bound(pts, h, w)
+    say("rasterize", f"fill bound from {lims['crossings']} crossing (row, edge) pairs of "
+        f"{n * h * k}: {lims['bound_ms']:.5f} ms by {lims['bound_by']}")
+    rec_fill = timed("fill_polygon", lambda: rk.fill_polygon(pts, (h, w)),
+                     lambda: rk.fill_polygon_reference(pts, (h, w)),
+                     {key: lims[key] for key in ("bound_ms", "bound_by")},
+                     resources(reports, "fill_polygon"), ("fill_polygon_kernel",))
+    canvas_k = torch.zeros((n, h, w), dtype=torch.uint8, device=dev)
+    canvas_r = torch.zeros_like(canvas_k)
+    samples = n * k * t.numel()
+    draw_lims = bound(nbytes(pts, rolled, t) + n * h * w, f32=float(DRAW_SAMPLE_OPS * samples))
+    rec_draw = timed("draw_segments", lambda: rk.draw_segments(canvas_k, pts, rolled, t),
+                     lambda: rk.draw_segments_reference(canvas_r, pts, rolled, t), draw_lims,
+                     resources(reports, "draw_segments"), ("draw_segments_kernel",))
+    return {"fill_polygon": {"max_abs_err": float((fill_k.int() - fill_r.int()).abs().max()),
+                             "crossings": lims["crossings"], **rec_fill},
+            "draw_segments": {"max_abs_err": float(max(
+                (a.int() - b.int()).abs().max() for a, b in masks.values())),
+                "samples": samples, **rec_draw}}
+
+
+def timed_updates(sac, times: list):
+    """Wrap ``sac.update`` so that each call's time (between two
+    synchronizes) and losses land in ``times``."""
+    import torch
+
+    update = sac.update
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*a, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0, {k: float(v) for k, v in out[1].items()}))
+        return out
+
+    sac.update = run
+
+
+def sac_iterations(label: str, trainer, module, uses: tuple, env_steps_per_step: int,
+                   smi: str):
+    """One warm-up and one update iteration of a SAC trainer ``module``'s
+    ``iteration``, launch counts from 0: ``uses`` once a step and once a
+    reset step, every other kernel 0; losses and rewards finite -> (counts,
+    {collect env-steps/s, median ms an update, ...}), printed beside the
+    card's ``smi`` line."""
+    import torch
+
+    from red_gym_tpu_torch.utils.profiling import Metrics
+
+    steps = trainer.args.steps_per_iter
+    times = []
+    timed_updates(trainer.sac, times)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out, resets = {}, 0
+    for name, do_update in (("warm-up", False), ("update", True)):
+        t0 = time.perf_counter()
+        acc, r = module.iteration(trainer, do_update)
+        means = {k: round(v, 6) for k, v in Metrics.means(acc).items()}
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0, means, r)
+        resets += r
+    counts = launch_counts()
+    upd = sorted(s for s, _ in times)
+    collect_s = out["warm-up"][0] + out["update"][0] - sum(upd)
+    rate = 2 * steps * env_steps_per_step / collect_s
+    # the median: the first updates also pay cuDNN's and the allocator's first calls
+    upd_ms = 1e3 * upd[len(upd) // 2] if upd else math.nan
+    say(label, f"warm-up iteration {out['warm-up'][0]:.2f} s {out['warm-up'][1]}, update "
+        f"iteration {out['update'][0]:.2f} s {out['update'][1]}; {2 * steps} steps of "
+        f"{env_steps_per_step} envs, {resets} reset steps; collection {rate:.0f} env-steps/s, "
+        f"{len(times)} SAC updates, median {upd_ms:.2f} ms, first "
+        f"{1e3 * times[0][0] if times else math.nan:.1f} ms ({smi}); launches {counts}")
+    check_counts(label, counts, uses, 2 * steps + resets)
+    losses = [v for _, ls in times for v in ls.values()]
+    means = [v for _, m, _ in out.values() for v in m.values()]
+    if not times or not all(map(math.isfinite, losses + means)):
+        fail(f"{label}: non-finite losses or metrics ({len(times)} updates)")
+    return counts, {"collect_env_steps_per_s": rate, "update_ms": upd_ms, "resets": resets,
+                    "last_losses": times[-1][1]}
+
+
+def sac_bitmap_phase(dev, smi: str):
+    """[sac_bitmap]: train_sac_bitmap_scale at its defaults (full width),
+    one warm-up and one update iteration; the replay's size and ptr; peak
+    memory; a profile of SAC_PROFILE_STEPS planning steps -> (launch
+    counts, the iterations' numbers)."""
+    import torch
+    from torch.profiler import record_function
+
+    from red_gym_tpu_torch.examples import train_sac_bitmap_scale as tsb
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = tsb.build(tsb.parse_args(["--device", "cuda"]))
+    torch.cuda.synchronize()
+    args = tr.args
+    say("sac_bitmap", f"{args.envs} envs, {args.bitmap} px, CNN {tr.sac.actor.compute_dtype}, "
+        f"batch {args.batch_size}, replay {args.capacity} x 2 x {args.bitmap}^2 uint8 "
+        f"({2 * tr.buf.obs.numel() / 1e9:.2f} GB), reward_mode {args.reward_mode}; build and "
+        f"reset {time.perf_counter() - t0:.1f} s")
+    if (args.envs, args.bitmap, tr.sac.actor.compute_dtype, tr.sac.actor.dense_0.in_features) \
+            != (64, 256, torch.bfloat16, 25088):
+        fail("sac_bitmap: the trainer's defaults are not the full-width SAL model")
+    counts, rec = sac_iterations("sac_bitmap", tr, tsb,
+                                 ("fill_polygon", "draw_segments", "march[beams]"), args.envs,
+                                 smi)
+    want = 2 * args.steps_per_iter * args.envs
+    peak = torch.cuda.max_memory_allocated(dev)
+    say("sac_bitmap", f"replay size {tr.buf.size}, ptr {tr.buf.ptr} (want {want}); peak device "
+        f"memory {peak / 2**30:.2f} GiB; {smi}")
+    if (tr.buf.size, tr.buf.ptr) != (want, want % args.capacity):
+        fail("sac_bitmap: the replay's size or ptr is off")
+
+    def steps():
+        for _ in range(SAC_PROFILE_STEPS):
+            with record_function("sac/policy"):
+                act = tr.sac.select_action(tr.sstate, tr.ps.bitmap, tr.gen)
+            tr.ps, *_ = tr.env.step(tr.ps, act, tr.gen)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / SAC_PROFILE_STEPS
+    ops, busy, prof = device_busy(steps)
+    # the ranges' own device-side annotations are device events too: not work
+    annotations = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name in PLAN_RANGES]
+    ops -= len(annotations)
+    busy -= sum(e.time_range.elapsed_us() for e in annotations) / 1e3
+    split = {name: [0.0, 0.0] for name in PLAN_RANGES}
+    for e in prof.events():
+        if e.name in split and e.device_type == torch.autograd.DeviceType.CPU:
+            split[e.name][0] += e.cpu_time_total / 1e3 / SAC_PROFILE_STEPS
+            split[e.name][1] += e.device_time_total / 1e3 / SAC_PROFILE_STEPS
+    say("profile:sac_bitmap", f"a planning step of {args.envs} envs: "
+        f"{ops / SAC_PROFILE_STEPS:.0f} device ops, device busy {busy / SAC_PROFILE_STEPS:.2f} ms, "
+        f"wall {wall:.2f} ms without the profiler; by range, host / device ms under the profiler: "
+        + ", ".join(f"{n} {h:.2f} / {d:.2f}" for n, (h, d) in split.items()))
+    kernels = sorted((a for a in prof.key_averages()
+                      if a.device_type == torch.autograd.DeviceType.CUDA
+                      and a.key not in PLAN_RANGES),
+                     key=lambda a: a.self_device_time_total, reverse=True)[:6]
+    say("profile:sac_bitmap", "device events by time a step: " + "; ".join(
+        f"{a.key[:60]} {a.self_device_time_total / 1e3 / SAC_PROFILE_STEPS:.2f} ms "
+        f"x{a.count / SAC_PROFILE_STEPS:.0f}" for a in kernels))
+    return counts, rec
+
+
+def sac_scale_phase(dev, smi: str):
+    """[sac_scale]: train_sac_scale at 512 envs x 1080 beams, one warm-up
+    and one update iteration; kernel 5 once a step and a reset step."""
+    from red_gym_tpu_torch.examples import train_sac_scale as tss
+
+    t0 = time.perf_counter()
+    tr = tss.build(tss.parse_args(["--device", "cuda"]))
+    if tr.cfg.scan_interp != "spectral" or tr.args.envs != 512:
+        fail(f"sac_scale: not the spectral scan at 512 envs: {tr.cfg}")
+    say("sac_scale", f"{tr.args.envs} envs x {tr.args.beams} beams, spectral fast scan; build "
+        f"(texture marched on the card) and reset {time.perf_counter() - t0:.1f} s")
+    return sac_iterations("sac_scale", tr, tss, ("theta_spectral_ttc",), tr.args.envs, smi)
+
+
+def sac_phase(dev, smi: str) -> dict:
+    """[sac]: train_sac's loop (one env) for SAC_STEPS steps with updates
+    every SAC_UPDATE_EVERY after SAC_UPDATE_AFTER; the kernels once a step
+    and a reset; the checkpoint restored torch.equal, the restored actor's
+    mean action equal."""
+    import tempfile
+
+    import torch
+
+    from red_gym_tpu_torch.examples import train_sac
+    from red_gym_tpu_torch.utils import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sac_actor_ckpt.pt")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = train_sac.main(["--episodes", "1", "--steps", str(SAC_STEPS), "--update-after",
+                             str(SAC_UPDATE_AFTER), "--update-every", str(SAC_UPDATE_EVERY),
+                             "--replay-capacity", "1000", "--save", path])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        got = checkpoint.restore(path, like=tr.sac.init(torch.Generator().manual_seed(123)))
+    same = all(torch.equal(v, b.state_dict()[k]) for a, b in zip(tr.sstate, got)
+               if isinstance(a, torch.nn.Module) for k, v in a.state_dict().items())
+    same = same and all(torch.equal(v, b.state_dict()["state"][i][k])
+                        for a, b in zip(tr.sstate, got) if not isinstance(a, torch.nn.Module)
+                        for i, st in a.state_dict()["state"].items() for k, v in st.items())
+    obs = tr.buf.obs[:4]
+    act_same = torch.equal(tr.sac.select_action(tr.sstate, obs, evaluate=True),
+                           tr.sac.select_action(got, obs, evaluate=True))
+    say("sac", f"{tr.total_steps} steps in {tr.episodes} episode(s), {seconds:.1f} s with the "
+        f"build ({smi}); replay {tr.buf.size}; checkpoint restored torch.equal {same}, mean "
+        f"action equal {act_same}; launches {counts}")
+    check_counts("sac", counts, ("fill_polygon", "draw_segments", "march[beams]"),
+                 tr.total_steps + tr.episodes)
+    if not (same and act_same):
+        fail("sac: the restored SAC state differs from the saved one")
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1897,6 +2231,12 @@ def main() -> None:
     del vec, vec_obs
     compat_counts = gym_compat_phase(dev, args.profile)
 
+    # the bitmap-SAC stack: the rasterizer's kernels, then the three trainers
+    raster = rasterize_phase(dev, reports)
+    bm_counts, _ = sac_bitmap_phase(dev, smi)
+    scale_counts, _ = sac_scale_phase(dev, smi)
+    sac_counts = sac_phase(dev, smi)
+
     mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
                 "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}
     blend_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/theta_blend.cu"}
@@ -1927,19 +2267,30 @@ def main() -> None:
                     "source": "red_gym_tpu_torch/csrc/theta_spectral.cu",
                     "replaces": "red_gym_tpu/ops/pallas_scan.py:692",
                     "launches": ultra_counts["theta_spectral_ttc"],
-                    "ppo_launches": ppo_k5, **spectral})
+                    "ppo_launches": ppo_k5,
+                    "sac_scale_launches": scale_counts["theta_spectral_ttc"], **spectral})
     records.append({"name": "march", "route": "cuda",
                     "source": "red_gym_tpu_torch/csrc/march.cu",
                     "replaces": "red_gym_tpu/ops/scan.py:153",
                     "note": "not a TPU kernel: replaces the lax.while_loop of the march",
                     "launches": exact["march[beams]"],
-                    "gym_compat_launches": compat_counts["march[beams]"], **march})
+                    "gym_compat_launches": compat_counts["march[beams]"],
+                    "sac_bitmap_launches": bm_counts["march[beams]"],
+                    "sac_launches": sac_counts["march[beams]"], **march})
     records.append({"name": "march+stacked", "route": "cuda",
                     "source": "red_gym_tpu_torch/csrc/march.cu",
                     "replaces": "red_gym_tpu/ops/scan.py:153",
                     "note": "the march's stacked form (multi-map, a map index a pose row); "
                             "not a TPU kernel",
                     "launches": mm_exact["march[beams]"], **mm_march})
+    for name, line in (("fill_polygon", 43), ("draw_segments", 67)):
+        records.append({"name": name, "route": "cuda",
+                        "source": "red_gym_tpu_torch/csrc/rasterize.cu",
+                        "replaces": f"red_gym_tpu/ops/rasterize.py:{line}",
+                        "note": "not a TPU kernel: replaces XLA's fused broadcast of the "
+                                "rasterizer; launches on [sac_bitmap]",
+                        "launches": bm_counts[name], "sac_launches": sac_counts[name],
+                        **raster[name]})
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),

@@ -1,2 +1,2 @@
-"""Agents: the pure-pursuit planner and the PPO actor-learner
-(``red_gym_tpu/agents/`` counterparts)."""
+"""Agents: the pure-pursuit planner, the PPO actor-learner, the batched MPC,
+the planning env and SAC (``red_gym_tpu/agents/`` counterparts)."""

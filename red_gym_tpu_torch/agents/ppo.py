@@ -42,11 +42,12 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def lecun_normal_(weight: torch.Tensor, gen: torch.Generator | None = None) -> torch.Tensor:
-    """Fill a Linear weight (out, in) as flax's ``lecun_normal`` fills its
-    kernel (in, out): truncated normal, variance 1/fan_in, clipped at +-2
-    sigma of the untruncated normal.  Drawn in float32 on ``gen``'s device
-    (the CPU by default), then copied in."""
-    fan_in = weight.shape[1]
+    """Fill a Linear weight (out, in) or a Conv2d weight (out, in, kh, kw)
+    as flax's ``lecun_normal`` fills its kernel (in, out) or (kh, kw, in,
+    out): truncated normal, variance 1/fan_in (fan_in = in * kh * kw),
+    clipped at +-2 sigma of the untruncated normal.  Drawn in float32 on
+    ``gen``'s device (the CPU by default), then copied in."""
+    fan_in = math.prod(weight.shape[1:])
     sigma = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     dev = gen.device if gen is not None else torch.device("cpu")
     w = torch.empty(weight.shape, dtype=torch.float32, device=dev)

@@ -105,6 +105,50 @@ def policy_from_numpy(flax_params: Mapping) -> dict:
     return out
 
 
+# flax submodule names, in call order, of each SAC network -> the port's
+# module names (agents/sac.py)
+_SAC_LAYERS = {
+    "actor": {"Dense_0": "dense_0", "Dense_1": "mean", "Dense_2": "log_std"},
+    "critic": {"Dense_0": "dense_0", "Dense_1": "out"},
+    "scan_actor": {"Dense_0": "mean", "Dense_1": "log_std"},
+    "scan_critic": {"Dense_0": "dense_0", "Dense_1": "out"},
+}
+
+
+def sac_from_numpy(flax_params: Mapping, kind: str) -> dict:
+    """The state_dict of the port's ``Actor``, ``Critic``, ``ScanActor`` or
+    ``ScanCritic`` (``kind`` "actor", "critic", "scan_actor",
+    "scan_critic") from the numpy leaves of the flax module's param tree
+    (with or without its outer "params" key).  ``ConvTrunk_0/Conv_i``
+    kernels (kh, kw, in, out) become ``Conv2d.weight`` (out, in, kh, kw);
+    ``ScanTrunk_0/Dense_i`` and the ``Dense_i`` of the head (in call order)
+    have their (in, out) kernels transposed to ``Linear.weight``.  Tensors
+    on the CPU; ``load_state_dict`` copies them onto the module's device
+    and dtype."""
+    if kind not in _SAC_LAYERS:
+        raise ValueError(f"kind must be one of {sorted(_SAC_LAYERS)}, got {kind!r}")
+    p = flax_params.get("params", flax_params)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    out = {}
+
+    def dense(layer, name):
+        out[f"{name}.weight"] = t(np.array(layer["kernel"]).T.copy())
+        out[f"{name}.bias"] = t(layer["bias"])
+
+    if kind in ("actor", "critic"):
+        for i in range(3):
+            conv = p["ConvTrunk_0"][f"Conv_{i}"]
+            out[f"trunk.conv_{i}.weight"] = t(
+                np.ascontiguousarray(np.array(conv["kernel"]).transpose(3, 2, 0, 1)))
+            out[f"trunk.conv_{i}.bias"] = t(conv["bias"])
+    else:
+        for i in range(2):
+            dense(p["ScanTrunk_0"][f"Dense_{i}"], f"trunk.dense_{i}")
+    for flax_name, name in _SAC_LAYERS[kind].items():
+        dense(p[flax_name], name)
+    return out
+
+
 def pure_pursuit_from_numpy(ppp: Mapping, device="cuda"):
     """``agents.pure_pursuit.PurePursuitParams`` from the numpy leaves of
     the JAX package's (one map's or a stack's)."""

@@ -73,10 +73,13 @@ class RolloutCarry(NamedTuple):
 
 def _select(new: NamedTuple, old: NamedTuple, idx) -> NamedTuple:
     """``old`` with the rows ``idx`` of every field replaced by ``new``
-    (whose rows are exactly those envs); a field that is None stays None."""
+    (whose rows are exactly those envs), NamedTuple fields field by field;
+    a field that is None stays None."""
     fields = []
     for a, b in zip(new, old):
-        if b is not None:
+        if isinstance(b, tuple):
+            b = _select(a, b, idx)
+        elif b is not None:
             b = b.clone()
             b[idx] = a
         fields.append(b)

@@ -1,1 +1,2 @@
-"""Utilities: checkpoints (``red_gym_tpu/utils/`` counterparts)."""
+"""Utilities: checkpoints, state health checks and profiling
+(``red_gym_tpu/utils/`` counterparts)."""

@@ -13,9 +13,13 @@ import torch
 
 import red_gym_tpu_torch
 from red_gym_tpu_torch import assets, env, gym_compat, interop, vec_env
+from red_gym_tpu_torch.agents.planning_env import PlanningEnv
+from red_gym_tpu_torch.agents.sac import SAC, ReplayBuffer
 from red_gym_tpu_torch.config import SimConfig, VehicleParams, resolve_device
+from red_gym_tpu_torch.examples import train_sac, train_sac_bitmap_scale, train_sac_scale
 from red_gym_tpu_torch.maps import loader
 from red_gym_tpu_torch.ops import scan
+from red_gym_tpu_torch.utils.profiling import Metrics
 
 TRACK = "track_0019"
 CFG = SimConfig(num_beams=270, scan_mode="fast", rt_pose_stride=8)
@@ -33,7 +37,13 @@ ENTRY_POINTS = {
     "interop.texture_from_numpy": interop.texture_from_numpy,
     "interop.state_from_numpy": interop.state_from_numpy,
     "vec_env.VecF110Env": vec_env.VecF110Env,
+    "agents.planning_env.PlanningEnv": PlanningEnv,
+    "agents.sac.SAC": SAC,
+    "agents.sac.ReplayBuffer.create": ReplayBuffer.create,
+    "utils.profiling.Metrics.init": Metrics.init,
 }
+SAC_TRAINERS = {"train_sac": train_sac, "train_sac_bitmap_scale": train_sac_bitmap_scale,
+                "train_sac_scale": train_sac_scale}
 
 CALLS_WITHOUT_DEVICE = {
     "env.make_params": lambda: env.make_params(CFG, assets.named_map_yaml(TRACK)),
@@ -58,6 +68,15 @@ CALLS_WITHOUT_DEVICE = {
                                                map=assets.named_map_yaml(TRACK), num_beams=270),
     "gym_adapter.F110GymnasiumEnv": lambda: _gymnasium().make(
         "red_gym_tpu_torch/f110-v0", map=assets.named_map_yaml(TRACK), num_beams=270),
+    "agents.planning_env.PlanningEnv": lambda: PlanningEnv(
+        SimConfig(num_agents=1, num_beams=108),
+        env.make_params(SimConfig(num_agents=1, num_beams=108), assets.named_map_yaml(TRACK),
+                        device="cpu")),
+    "agents.sac.SAC": lambda: SAC(obs_shape=(64, 64), action_dim=16),
+    "agents.sac.ReplayBuffer.create": lambda: ReplayBuffer.create(4, (3,), 2),
+    "utils.profiling.Metrics.init": lambda: Metrics.init(("reward",)),
+    **{f"examples.{name}.build": (lambda m=m: m.build(m.parse_args([])))
+       for name, m in SAC_TRAINERS.items()},
     "gym_vector.F110VectorEnv": lambda: _gymnasium().make_vec(
         "red_gym_tpu_torch/f110-v0", num_envs=2, map=assets.named_map_yaml(TRACK),
         num_beams=270),
@@ -82,6 +101,11 @@ def test_call_without_device_raises_without_a_gpu(name):
         pytest.skip("this machine has a GPU: the default device is usable")
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         CALLS_WITHOUT_DEVICE[name]()
+
+
+@pytest.mark.parametrize("name", list(SAC_TRAINERS))
+def test_sac_trainer_device_flag_defaults_to_cuda(name):
+    assert SAC_TRAINERS[name].parse_args([]).device == "cuda"
 
 
 def test_resolve_device_passes_cpu_through():

@@ -32,7 +32,11 @@ def test_package_has_sources():
             "agents/pure_pursuit.py", "agents/ppo.py", "utils/checkpoint.py",
             "examples/train_ppo.py", "ops/collision.py", "vec_env.py",
             "gym_compat.py", "_registration.py", "gym_adapter.py", "gym_vector.py",
-            "render/viewer.py", "utils/debug.py"} <= names
+            "render/viewer.py", "utils/debug.py", "utils/profiling.py",
+            "ops/rasterize.py", "ops/raster_kernels.py", "ops/bitmap_rewards.py",
+            "agents/mpc.py", "agents/planning_env.py", "agents/sac.py",
+            "examples/train_sac.py", "examples/train_sac_scale.py",
+            "examples/train_sac_bitmap_scale.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, PKG))
