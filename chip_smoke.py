@@ -183,6 +183,41 @@ line:
      the kernels once a step and once a reset; its checkpoint restored
      torch.equal and the restored actor's mean action equal.
 
+10. the tooling tier, launch counts set to 0 before and read after
+   each (phase 3 also runs [edt] on the 14 maps before the main paths):
+   - [edt]: kernel E (csrc/edt.cu; it replaces XLA's min-plus passes of
+     red_gym_tpu/ops/edt.py, no TPU kernel) on the 11 packaged tracks,
+     berlin, skirk and the generated track: torch.equal to its twin on the
+     card and within scipy's bar (rtol 1e-6, atol 1e-5); on track_0019 and
+     the largest map its times, bound (2 H^2 W operations of the column
+     pass at the float32 rate, or bytes), registers, spills and scipy's
+     host seconds;
+   - [trackgen]: maps.trackgen.generate(seed 0) on the host, load_map with
+     edt_backend="device" (kernel E once) and the texture marched on the
+     card, then the default path for 200 steps from the generated CSV's
+     waypoint starts: kernels 1a and 2 once a step and reset step;
+   - [param_search]: tuning.search at examples/param_search_cma.py's width
+     (popsize 50, 64 beams, float32 exact scan, RK4, dt 0.01, march_iters
+     32, no noise) on track_0019, one generation of 500 steps (cut from the
+     example's 15 x 4500): the march kernel once a step and the reset step,
+     every other kernel 0, fitness finite, ms a step, rollouts/s and a
+     torch.profiler summary of 5 steps; the evaluator in float64 at popsize
+     4 x 200 steps on the card and the CPU within 1e-9;
+   - [fast64]: the default config in float64 (texture marched in float64 by
+     the march kernel) for 50 timed steps at 16384 x 2 x 1080, no scan
+     kernel (JAX launches no Pallas kernel there either), the first 256
+     envs' scans within 1e-9 m of the CPU's; scan_backend="xla" in float32
+     for 50 steps, no scan kernel, one step at the float32 scan bar against
+     the default path's step (e/w taps in float32) from the same state;
+   - [export]: the PPO phase's ScanPolicy(hidden=256) head exported with a
+     symbolic batch, saved and loaded (utils.export): 16384 scans served
+     within 1e-6 of the direct head, ms a batch, batches of 1 and 7; a
+     200-step race driven by the loaded program; the SAC phase's actor
+     through the same round trip;
+   - [collect_lidar]: examples/collect_lidar_dataset.py at its defaults (64
+     episodes x 10 steps, 256 px): march, fill and segment kernels launched
+     as expected, the npz with JAX's keys, shapes and dtypes.
+
 ``--profile`` adds torch.profiler summaries (device kernels and device
 busy time per step) of the default, eager, bilinear, ultra and exact
 paths, of the four multi-map paths and of [vec_env] and [gym_compat], tables of the default, bilinear,
@@ -191,8 +226,10 @@ and the trainer's split of one iteration by section (``[profile]`` line of
 train_ppo.profile_iteration).
 
 The last two lines are the kernels' JSON record (with each kernel's
-launches on the gym-surface phases that run it: ``vec_env_launches``,
-``gym_compat_launches``) and ``{"ok": true, ...}``.  Nothing here imports
+launches on the other phases that run it: ``vec_env_launches``,
+``gym_compat_launches``, ``trackgen_launches``, ``param_search_launches``,
+``collect_lidar_launches``; kernel E's record with each timed map under
+``maps``) and ``{"ok": true, ...}``.  Nothing here imports
 gymnasium or matplotlib.
 """
 
@@ -531,6 +568,7 @@ KERNEL_FUNCTIONS = {
     "march+stacked": ("march", "march_beams_stacked_kernel<float>"),
     "fill_polygon": ("rasterize", "fill_polygon_kernel"),
     "draw_segments": ("rasterize", "draw_segments_kernel"),
+    "edt": ("edt", "edt_col_kernel"),
 }
 
 
@@ -1183,8 +1221,9 @@ def multimap_mega_phase(cfg, params, yamls, midx, dev) -> None:
 
 
 def launch_counts() -> dict:
-    from red_gym_tpu_torch.ops import (blend_kernels, march_kernels, raster_kernels,
-                                       scan_kernels, spectral_kernels, state_kernels)
+    from red_gym_tpu_torch.ops import (blend_kernels, edt_kernels, march_kernels,
+                                       raster_kernels, scan_kernels, spectral_kernels,
+                                       state_kernels)
 
     return {**{f"mega_edge_ttc[{k}]": v
                for k, v in scan_kernels.mega_edge_ttc.launches.items()},
@@ -1194,13 +1233,16 @@ def launch_counts() -> dict:
             "march[rays]": march_kernels.march.launches,
             "march[beams]": march_kernels.march_beams.launches,
             "fill_polygon": raster_kernels.fill_polygon.launches,
-            "draw_segments": raster_kernels.draw_segments.launches}
+            "draw_segments": raster_kernels.draw_segments.launches,
+            "edt": edt_kernels.edt_transform.launches}
 
 
 def reset_launch_counts() -> None:
-    from red_gym_tpu_torch.ops import (blend_kernels, march_kernels, raster_kernels,
-                                       scan_kernels, spectral_kernels, state_kernels)
+    from red_gym_tpu_torch.ops import (blend_kernels, edt_kernels, march_kernels,
+                                       raster_kernels, scan_kernels, spectral_kernels,
+                                       state_kernels)
 
+    edt_kernels.reset_launches()
     raster_kernels.reset_launches()
     march_kernels.reset_launches()
     scan_kernels.reset_launches()
@@ -1220,22 +1262,25 @@ def check_counts(label: str, counts: dict, uses: tuple, want: int) -> None:
 
 
 def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
-              profile: bool, max_step_ms: float | None = None, maps=None) -> dict:
+              profile: bool, max_step_ms: float | None = None, maps=None,
+              start=None, out: dict | None = None) -> dict:
     """Drive one path; ``uses`` names the launch counters it must advance
     (once per step and reset step); every other counter must stay 0.  With
     ``max_step_ms``, a path whose warm-up steps took longer than that a step
     times proportionally fewer steps, at least 20.  ``maps`` = (map_idx
     (E,), start table (M, A, 3)) runs map-stacked params: env e starts at
     its map's row of the table, and each auto-reset draws a map and its
-    start (make_rollout's randomize_starts)."""
+    start (make_rollout's randomize_starts).  ``start`` (A, 3) replaces
+    track_0019's waypoint starts; ``out`` receives the final carry."""
     import torch
 
     from red_gym_tpu_torch import assets, rollout
 
     roll_kw = {}
     if maps is None:
-        start = torch.as_tensor(assets.waypoint_start_poses(TRACK, AGENTS),
-                                dtype=cfg.tdtype, device=dev)
+        if start is None:
+            start = assets.waypoint_start_poses(TRACK, AGENTS)
+        start = torch.as_tensor(start, dtype=cfg.tdtype, device=dev)
         poses = start.expand(ENVS, AGENTS, 3).contiguous()
         reset_kw = {}
     else:
@@ -1291,6 +1336,8 @@ def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
         f"{float(scans.mean()):.3f} m, {100 * far_beams:.1f}% of beams beyond 0.5 m")
     if far_beams < 0.5:
         fail(f"{label}: most beams read under 0.5 m: degenerate scans")
+    if out is not None:
+        out["carry"] = carry
     if maps is not None:
         used = torch.bincount(carry.state.map_idx.long(), minlength=maps[1].shape[0])
         say(f"main:{label}", f"envs on each map after the run: {used.tolist()}")
@@ -2071,6 +2118,365 @@ def sac_phase(dev, smi: str) -> dict:
                  tr.total_steps + tr.episodes)
     if not (same and act_same):
         fail("sac: the restored SAC state differs from the saved one")
+    return counts, tr
+
+
+STACK_NAME = "multimap_pad"  # track_0019 padded to the multi-map stack's size
+EDT_ROW_OPS = 8            # row pass: a load, a compare and the two squared distances a pixel
+TRACKGEN_SEED = 0
+PARAM_POP, PARAM_BEAMS = 50, 64    # examples/param_search_cma.py's width
+PARAM_STEPS = 500          # one generation, cut from the example's 15 x 4500 steps
+PARAM_F64_POP, PARAM_F64_STEPS = 4, 200
+FAST64_STEPS = 50
+FAST64_CHECK_ENVS = 256
+EXPORT_BATCHES = (1, 7)
+RACE_STEPS = 200
+
+
+def edt_bound(occ, out) -> dict:
+    """Kernel E's bound on one map: the column pass's add and min a (pixel,
+    row) pair and the row pass's EDT_ROW_OPS a pixel at the float32 rate,
+    against the occupancy read once, D1 written and read once and the
+    output written once."""
+    h, w = occ.shape
+    moved = nbytes(occ, out) + 2 * 4 * h * w
+    return bound(moved, f32=2.0 * h * h * w + EDT_ROW_OPS * h * w)
+
+
+def edt_phase(maps: list, dev, reports) -> dict:
+    """[edt]: kernel E on each map of ``maps`` (yaml paths): torch.equal to
+    its twin on the card, within scipy's bar (rtol 1e-6, atol 1e-5), and
+    on track_0019 zero-padded to the stack's size (the largest height and
+    width of the maps, 952 x 947 for the packaged tracks); on track_0019,
+    the padded grid and a lone map its times, bound, registers and spills,
+    and scipy's host seconds beside them (set-up context, not a
+    yardstick)."""
+    import numpy as np
+    import torch
+    from scipy.ndimage import distance_transform_edt
+
+    from red_gym_tpu_torch import assets
+    from red_gym_tpu_torch.maps import loader
+    from red_gym_tpu_torch.ops import edt_kernels
+
+    shapes = {assets_name(p): loader.load_map_image(p[:-5] + ".png").shape for p in maps}
+    timed_maps = {TRACK, STACK_NAME}
+    rec = {}
+    grids = [(p, None) for p in maps]
+    if any(assets_name(p) == TRACK for p in maps):
+        # the multi-map stack's padded size: track_0019 zero-padded (walls)
+        # to the largest height and width of the maps
+        grids.append((assets.named_map_yaml(TRACK), tuple(map(max, zip(*shapes.values())))))
+    for path, pad in grids:
+        occ = loader.load_map_image(path[:-len(".yaml")] + ".png")
+        if pad is not None:
+            occ = np.pad(occ, ((0, pad[0] - occ.shape[0]), (0, pad[1] - occ.shape[1])))
+        res = float(loader.read_map_yaml(path)["resolution"])
+        o = torch.as_tensor(occ, device=dev)
+        got = edt_kernels.edt_transform(o, res)
+        twin = edt_kernels.edt_reference(o, res)
+        same = torch.equal(got, twin)
+        t0 = time.perf_counter()
+        want = distance_transform_edt(occ) * res
+        host_s = time.perf_counter() - t0
+        err = np.abs(got.cpu().numpy() - want)
+        ok = bool(np.all(err <= 1e-5 + 1e-6 * np.abs(want)))
+        name = STACK_NAME if pad is not None else assets_name(path)
+        if len(maps) == 1:
+            timed_maps.add(name)
+        say("edt", f"{name} {occ.shape[0]}x{occ.shape[1]}: torch.equal to the twin {same}; "
+            f"max |diff| to scipy {float(err.max()):.3e} m (bar met {ok}); scipy on the host "
+            f"{host_s:.4f} s")
+        if not (same and ok):
+            fail(f"edt: {name}: the kernel differs from its twin or from scipy")
+        if name in timed_maps and name not in rec:
+            res_k = dict(resources(reports, "edt"))
+            res_k["kernels"] = {fn: reports["edt"][fn] for fn in ("edt_row_kernel",
+                                                                    "edt_col_kernel")}
+            r = timed(f"edt {name}", lambda: edt_kernels.edt_transform(o, res),
+                      lambda: edt_kernels.edt_reference(o, res), edt_bound(o, got), res_k,
+                      ("edt_row_kernel", "edt_col_kernel"))
+            rec[name] = {**r, "max_abs_err": float((got - twin).abs().max()),
+                         "shape": list(occ.shape), "scipy_host_s": host_s}
+    return rec
+
+
+def assets_name(path: str) -> str:
+    return os.path.basename(path)[:-len(".yaml")]
+
+
+def trackgen_phase(dev, profile: bool):
+    """[trackgen]: a track generated on the host (maps.trackgen, seed 0),
+    its map loaded with the device EDT (kernel E, once) and its texture
+    marched on the card; then the default path at ENVS x AGENTS x BEAMS for
+    STEPS steps from the generated CSV's waypoint starts: the megakernel
+    with opponents and prestep once a step and reset step, every other
+    kernel 0.  -> (counts of the load with the track's "yaml" path, counts
+    of the path)."""
+    import tempfile
+
+    import torch
+
+    from red_gym_tpu_torch import assets, env
+    from red_gym_tpu_torch.config import SimConfig
+    from red_gym_tpu_torch.maps import loader, trackgen
+
+    tmp = tempfile.mkdtemp(prefix="trackgen_")
+    t0 = time.perf_counter()
+    yaml_path = trackgen.generate(tmp, seed=TRACKGEN_SEED)
+    gen_s = time.perf_counter() - t0
+    cfg = SimConfig(num_agents=AGENTS, num_beams=BEAMS, scan_mode="fast")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tmap = loader.load_map(yaml_path, dtype=cfg.tdtype, device=dev, edt_backend="device")
+    params = env.make_params(cfg, yaml_path, tmap=tmap, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    load_counts = launch_counts()
+    say("trackgen", f"{os.path.basename(yaml_path)}: {int(tmap.height)}x{int(tmap.width)} px "
+        f"generated in {gen_s:.2f} s on the host; load_map(edt_backend='device') + "
+        f"make_params (texture marched on the card) {setup_s:.2f} s; launches {load_counts}")
+    if load_counts["edt"] != 1:
+        fail(f"trackgen: the EDT kernel launched {load_counts['edt']} times, expected 1")
+    counts = main_path("trackgen", cfg, params, dev, STEPS, ("mega_edge_ttc[opp]", "prestep"),
+                       profile, start=assets.waypoint_start_poses(yaml_path, AGENTS))
+    return {**load_counts, "yaml": yaml_path}, counts
+
+
+def param_search_phase(dev):
+    """[param_search]: tuning.search at examples/param_search_cma.py's
+    configuration (popsize 50, 64 beams, float32 exact scan, RK4, dt 0.01,
+    march_iters 32, no noise) on track_0019 for one generation of
+    PARAM_STEPS steps: the march kernel once a step and the reset step,
+    every other kernel 0, fitness finite; ms a step and rollouts/s; a
+    torch.profiler summary of 5 evaluator steps; then the evaluator in
+    float64 at popsize 4 x 200 steps on the card and on the CPU, fitness
+    within 1e-9."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from red_gym_tpu_torch import assets
+    from red_gym_tpu_torch.agents import pure_pursuit as pp
+    from red_gym_tpu_torch.examples.param_search_cma import make_config
+    from red_gym_tpu_torch.tuning import make_laptime_evaluator, search
+
+    cfg = make_config(PARAM_BEAMS)
+    yml = assets.named_map_yaml(TRACK)
+    start = assets.waypoint_start_poses(TRACK, 1)[0]
+    wpts = pp.load_waypoints_csv(assets.waypoints_csv(TRACK), dtype=torch.float32, device=dev)
+    logs = []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, best_f = search(cfg, yml, wpts, start_pose=start, popsize=PARAM_POP, generations=1,
+                          steps=PARAM_STEPS, log=logs.append, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    mean_f = float(logs[0].split("mean ")[1].split("s")[0])
+    say("param_search", f"popsize {PARAM_POP} x {PARAM_BEAMS} beams, one generation of "
+        f"{PARAM_STEPS} steps (the example runs 15 x 4500): {seconds:.2f} s with set-up, "
+        f"{1e3 * seconds / PARAM_STEPS:.2f} ms a step, {PARAM_POP / seconds:.2f} rollouts/s; "
+        f"{logs[0]}; best {best_f:.3f} s with {best}; launches {counts}")
+    check_counts("param_search", counts, ("march[beams]",), PARAM_STEPS + 1)
+    if not (np.isfinite(best_f) and np.isfinite(mean_f)):
+        fail("param_search: non-finite fitness")
+
+    pop = {"m": np.full(PARAM_POP, 3.74), "lf": np.full(PARAM_POP, 0.15875),
+           "tlad": np.linspace(0.3, 3.0, PARAM_POP), "vgain": np.linspace(0.6, 1.4, PARAM_POP)}
+    ev5 = make_laptime_evaluator(cfg, yml, wpts, PROFILE_STEPS, start, device=dev)
+    ev5(pop)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev5(pop)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / PROFILE_STEPS
+    ops, busy_ms, _ = device_busy(lambda: ev5(pop))
+    say("profile:param_search", f"{PROFILE_STEPS} evaluator steps of {PARAM_POP} envs "
+        f"(and its reset step): {ops} device ops ({ops / (PROFILE_STEPS + 1):.0f} a step), "
+        f"device busy {busy_ms:.2f} ms ({busy_ms / (PROFILE_STEPS + 1):.3f} ms a step); "
+        f"wall {wall_ms:.2f} ms a step without the profiler")
+
+    c64 = dc.replace(cfg, dtype="float64")
+    small = {k: v[:PARAM_F64_POP] for k, v in pop.items()}
+    fit = {}
+    for d in (dev, torch.device("cpu")):
+        w64 = pp.load_waypoints_csv(assets.waypoints_csv(TRACK), device=d)
+        fit[d.type] = make_laptime_evaluator(c64, yml, w64, PARAM_F64_STEPS, start,
+                                             device=d)(small).cpu().numpy()
+    diff = float(np.abs(fit["cuda"] - fit["cpu"]).max())
+    say("param_search", f"float64 evaluator, popsize {PARAM_F64_POP} x {PARAM_F64_STEPS} "
+        f"steps: card {fit['cuda'].tolist()}, CPU {fit['cpu'].tolist()}, max |diff| {diff:.3e}")
+    if not diff <= 1e-9:
+        fail(f"param_search: float64 fitness differs between card and CPU by {diff}")
+    return counts, {"ms_per_step": 1e3 * seconds / PARAM_STEPS,
+                    "rollouts_per_s": PARAM_POP / seconds, "profile_ops": ops,
+                    "profile_busy_ms": busy_ms, "profile_wall_ms_per_step": wall_ms}
+
+
+def to_cpu(params):
+    """The same EnvParams with every tensor moved to the CPU."""
+    def cpu(nt):
+        return None if nt is None else type(nt)(*[None if v is None else v.cpu() for v in nt])
+    return params._replace(vehicle=cpu(params.vehicle), tables=cpu(params.tables),
+                           tmap=cpu(params.tmap), rtex=cpu(params.rtex),
+                           noise_pool=None if params.noise_pool is None
+                           else params.noise_pool.cpu())
+
+
+def fast64_phase(params32, dev, profile: bool) -> None:
+    """[fast64]: the default config in float64 (its texture marched in
+    float64 on the card) for FAST64_STEPS timed steps at ENVS x AGENTS x
+    BEAMS, no scan kernel; the first 256 envs' scans at the end equal the
+    same float64 call on the CPU (the card's texture moved there) within
+    1e-9 m; then scan_backend="xla" in float32 on the default texture for
+    FAST64_STEPS steps, no scan kernel, and one step of it at the float32
+    scan bar against one default-path step (its e/w taps in float32, as
+    the XLA tail's) from the same state, actions and noise rows."""
+    import dataclasses as dc
+
+    import torch
+
+    from red_gym_tpu_torch import assets, env
+    from red_gym_tpu_torch.config import SimConfig
+    from red_gym_tpu_torch.ops import scan_fast
+
+    cfg = SimConfig(num_agents=AGENTS, num_beams=BEAMS, scan_mode="fast", dtype="float64")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = env.make_params(cfg, assets.named_map_yaml(TRACK), device=dev)
+    torch.cuda.synchronize()
+    say("fast64", f"float64 make_params (texture marched in float64 on the card): "
+        f"{time.perf_counter() - t0:.2f} s, rt {tuple(params.rtex.rt.shape)} "
+        f"{params.rtex.rt.dtype}")
+    out = {}
+    main_path("fast64", cfg, params, dev, FAST64_STEPS, (), profile, out=out)
+    state = out["carry"].state
+    poses = state.x[:FAST64_CHECK_ENVS][..., [0, 1, 4]]
+    got = scan_fast.trace_fast_mxu(poses, params.tables, params.tmap, params.rtex, cfg)
+    cp = to_cpu(params)
+    want = scan_fast.trace_fast_mxu(poses.cpu(), cp.tables, cp.tmap, cp.rtex, cfg)
+    diff = float((got.cpu() - want).abs().max())
+    say("fast64", f"scans of the first {FAST64_CHECK_ENVS} envs, card against CPU: max |diff| "
+        f"{diff:.3e} m")
+    if not diff <= 1e-9:
+        fail(f"fast64: the card's float64 scans differ from the CPU's by {diff} m")
+    del params, cp, out, state
+
+    xla = SimConfig(num_agents=AGENTS, num_beams=BEAMS, scan_mode="fast", scan_backend="xla")
+    out = {}
+    main_path("xla", xla, params32, dev, FAST64_STEPS, (), False, out=out)
+    state = out["carry"].state
+    # the XLA tail keeps the scan dtype for the e/w taps ("auto", as JAX
+    # off a TPU does); the default path's kernels take them in bfloat16 on
+    # the card, so the reference step takes them in float32 too
+    default = dc.replace(xla, scan_backend="auto", rt_ew_dtype="float32")
+    act = torch.stack([torch.full((ENVS, AGENTS), 0.1, device=dev),
+                       torch.full((ENVS, AGENTS), 3.0, device=dev)], dim=-1)
+    obs = {}
+    for label, c in (("xla", xla), ("default", default)):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        _, o, *_ = env.step(c, params32, state, act, gen)
+        obs[label] = o
+    bar_hit = (obs["xla"].collisions.reshape(-1), obs["default"].collisions.reshape(-1))
+    scan_bar("xla against default, one step", obs["xla"].scans.reshape(-1, BEAMS), None,
+             obs["default"].scans.reshape(-1, BEAMS), None, float(params32.rtex.cell))
+    if not torch.equal(*bar_hit):
+        fail("xla: the collision flags differ from the default path's")
+
+
+def export_phase(ppo_policy, sac_actor, sac_obs, ppo_obs, dev) -> dict:
+    """[export]: the PPO phase's trained ScanPolicy head exported with a
+    symbolic batch on the card (utils.export), saved and loaded: 16384 scans
+    served within 1e-6 of the direct head, ms a batch; batches of 1 and 7
+    from the same artifact; a RACE_STEPS-step race driven by the loaded
+    program (examples/export_policy.py --race, track_0019); the SAC phase's
+    actor through the same round trip."""
+    import tempfile
+
+    import torch
+
+    from red_gym_tpu_torch.agents import ppo as ppolib
+    from red_gym_tpu_torch.examples import export_policy
+    from red_gym_tpu_torch.utils import export as ex
+
+    scans = ppo_obs.scans[:, 0].float().contiguous()
+    vels = ppo_obs.linear_vels_x[:, 0].float().contiguous()
+    head = ex.deterministic_ppo_control(ppo_policy, ppolib.PPOConfig())
+    tmp = tempfile.mkdtemp(prefix="export_")
+    path = os.path.join(tmp, "racer.pt2")
+    t0 = time.perf_counter()
+    ex.save_policy(path, head, (scans[:1], vels[:1]), device=dev)
+    racer = ex.load_policy(path).module()
+    export_s = time.perf_counter() - t0
+    res = {}
+    with torch.no_grad():
+        served = racer(scans, vels)
+        direct = head(scans, vels)
+        diff = float((served - direct).abs().max())
+        ms = median_ms(lambda: racer(scans, vels), TIMING_REPS)
+        direct_ms = median_ms(lambda: head(scans, vels), TIMING_REPS)
+        for n in EXPORT_BATCHES:
+            res[n] = float((racer(scans[:n], vels[:n]) - head(scans[:n], vels[:n])).abs().max())
+    say("export", f"PPO head (hidden {ppo_policy.hidden}) exported, saved "
+        f"({os.path.getsize(path) / 1e6:.2f} MB) and loaded in {export_s:.2f} s; served "
+        f"{scans.shape[0]} scans: max |diff| to the direct head {diff:.3e}; "
+        f"{ms:.4f} ms a batch (direct {direct_ms:.4f}); batches {list(res)}: max |diff| "
+        f"{list(res.values())}")
+    if not (diff <= 1e-6 and all(v <= 1e-6 for v in res.values())):
+        fail("export: the served PPO program differs from the direct head")
+    steps, laps, speed, crashes = export_policy.race(path, RACE_STEPS, TRACK, "fast", dev)
+    if steps < 1 or speed != speed:
+        fail("export: the race did not run")
+    sac_head = ex.deterministic_sac_action(sac_actor)
+    spath = os.path.join(tmp, "sac.pt2")
+    ex.save_policy(spath, sac_head, (sac_obs[:1],), device=dev)
+    with torch.no_grad():
+        sdiff = float((ex.load_policy(spath).module()(sac_obs) - sac_head(sac_obs)).abs().max())
+    say("export", f"SAC actor round trip on {sac_obs.shape[0]} observations: max |diff| "
+        f"{sdiff:.3e}; race {steps} steps, laps {laps}, mean speed {speed:.2f} m/s, "
+        f"collision steps {crashes}")
+    if not sdiff <= 1e-6:
+        fail("export: the served SAC program differs from the direct head")
+    return {"serve_ms": ms, "direct_ms": direct_ms, "max_abs_err": diff}
+
+
+def collect_lidar_phase(dev) -> dict:
+    """[collect_lidar]: examples/collect_lidar_dataset.py at its defaults
+    (64 episodes x 10 steps, 256 px, track_0019): the march kernel, the fill
+    and the segment draw launched once a step (the march also at the
+    reset), every other kernel 0; the npz with JAX's keys, shapes and
+    dtypes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from red_gym_tpu_torch.examples import collect_lidar_dataset as cld
+
+    args = cld.parse_args([])
+    path = os.path.join(tempfile.mkdtemp(prefix="lidar_"), "lidar_dataset.npz")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cld.main(["--out", path, "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    e_n, t_n, px = args.episodes, args.steps, args.image_size
+    want = {"bitmaps": ((t_n, e_n, px, px), np.uint8), "scans": ((t_n, e_n, BEAMS), np.float32),
+            "actions": ((t_n, e_n, 2), np.float32), "spawns": ((e_n, 3), np.float32)}
+    with np.load(path) as z:
+        got = {k: (z[k].shape, z[k].dtype) for k in z.files}
+    say("collect_lidar", f"{e_n} episodes x {t_n} steps x {px} px in {seconds:.2f} s with "
+        f"set-up; npz {got}; launches {counts}")
+    if got != want:
+        fail(f"collect_lidar: npz {got}, expected {want}")
+    for name, n in counts.items():
+        expect = {"march[beams]": t_n + 1, "fill_polygon": t_n, "draw_segments": t_n}.get(name, 0)
+        if n != expect:
+            fail(f"collect_lidar: {name} launched {n} times, expected {expect}")
     return counts
 
 
@@ -2143,6 +2549,11 @@ def main() -> None:
         fail("the ultra and legacy configs must read the same texture channels")
 
     texture_phase(cfg, params.tmap)
+    # kernel E on every packaged map (11 tracks, berlin, skirk) and, below,
+    # on a generated track
+    edt_maps = assets.packaged_tracks() + [
+        os.path.join(assets.DATA_DIR, "classic", f"{n}.yaml") for n in ("berlin", "skirk")]
+    edt_rec = edt_phase(edt_maps, dev, reports)
     exact_cfg = dataclasses.replace(cfg, scan_mode="exact")
     march = march_phase(exact_cfg, params, dev, reports)
     mega = mega_phase(cfg, params, dev, reports)
@@ -2223,6 +2634,7 @@ def main() -> None:
     ppo_once("ppo_multimap_pursuit", ["--multi-map", "--opponents", "pursuit"],
              mm["default"], dev, "theta_shuffle_blend_edge_ttc_opp", after=pursuit_progress)
     checkpoint_phase(ppo, pstate, states, obs)
+    ppo_policy, ppo_obs = pstate.policy, obs
     del ppo, pstate, states, obs, mm
 
     # the gym surface: VecF110Env, the state health checks, gym_compat
@@ -2235,7 +2647,17 @@ def main() -> None:
     raster = rasterize_phase(dev, reports)
     bm_counts, _ = sac_bitmap_phase(dev, smi)
     scale_counts, _ = sac_scale_phase(dev, smi)
-    sac_counts = sac_phase(dev, smi)
+    sac_counts, sac_tr = sac_phase(dev, smi)
+
+    # the tooling tier: trackgen with the device EDT, the CMA-ES search, the
+    # float64 fast scan and scan_backend="xla", export, the lidar collector
+    edt_load, trackgen_counts = trackgen_phase(dev, args.profile)
+    edt_rec.update(edt_phase([edt_load.pop("yaml")], dev, reports))
+    param_counts, _ = param_search_phase(dev)
+    fast64_phase(params, dev, args.profile)
+    export_phase(ppo_policy, sac_tr.sstate.actor, sac_tr.buf.obs[:4], ppo_obs, dev)
+    del ppo_policy, ppo_obs, sac_tr
+    collect_counts = collect_lidar_phase(dev)
 
     mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
                 "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}
@@ -2291,6 +2713,19 @@ def main() -> None:
                                 "rasterizer; launches on [sac_bitmap]",
                         "launches": bm_counts[name], "sac_launches": sac_counts[name],
                         **raster[name]})
+    records.append({"name": "edt", "route": "cuda", "source": "red_gym_tpu_torch/csrc/edt.cu",
+                    "replaces": "red_gym_tpu/ops/edt.py:34",
+                    "note": "not a TPU kernel: replaces XLA's two dense min-plus passes of the "
+                            "device EDT; launches on [trackgen] (one a load_map)",
+                    "launches": edt_load["edt"], "maps": edt_rec,
+                    **edt_rec[assets_name(assets.named_map_yaml(TRACK))]})
+    next(r for r in records if r["name"] == "march").update(
+        param_search_launches=param_counts["march[beams]"],
+        collect_lidar_launches=collect_counts["march[beams]"])
+    next(r for r in records if r["name"] == "mega_edge_ttc+opp")[
+        "trackgen_launches"] = trackgen_counts["mega_edge_ttc[opp]"]
+    next(r for r in records if r["name"] == "prestep")[
+        "trackgen_launches"] = trackgen_counts["prestep"]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),

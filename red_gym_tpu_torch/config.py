@@ -15,8 +15,10 @@ megakernel's scope (``rt_spatial``, ``rt_occlusion``, ``rt_grad``) runs the
 unfused scan, whose epilogue takes the noise, iTTC and opponent cast as
 ``fuse_scan_ttc`` and ``fuse_scan_opp`` say.  ``scan_interp="spectral"``
 runs the spectral render, with the noise add and iTTC in its kernel where
-``fuse_scan_ttc`` resolves on.  ``scan_backend="xla"`` names the TPU
-compiler's path and is refused.
+``fuse_scan_ttc`` resolves on.  The kernels take float32: in float64, and
+under ``scan_backend="xla"``, every kernel knob's "auto" resolves off and
+its "on" raises ValueError, and the fast scan runs JAX's XLA branches
+eagerly (``ops/scan_fast.xla_tail``).
 """
 
 from __future__ import annotations

@@ -24,11 +24,11 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one kernel on top of NVCC_FLAGS: the state kernel, the march and
-# the rasterizer must round every operation on its own, as the PyTorch code
+# flags of one kernel on top of NVCC_FLAGS: the state kernel, the march, the
+# rasterizer and the EDT must round every operation on its own, as the PyTorch code
 # they mirror does (no FMA contraction)
 EXTRA_FLAGS = {"prestep": ("-fmad=false",), "march": ("-fmad=false",),
-               "rasterize": ("-fmad=false",)}
+               "rasterize": ("-fmad=false",), "edt": ("-fmad=false",)}
 
 
 def nvcc_path() -> str:

@@ -49,17 +49,20 @@ def pairwise_hits_from_poses(poses, length, width):
 
     Agents are paired by rolling the agent axis: pass k tests i against
     i+k, and its result also flags i+k (the even-A middle pass already sees
-    each pair from both sides).  length/width are scalars or (A,)."""
+    each pair from both sides).  length/width are scalars, (A,) or any
+    shape that broadcasts against (..., A): (E, 1) gives each env its own
+    car (a parameter-search population)."""
     a_n = poses.shape[-2]
+    shape = poses.shape[:-1]
     hl = torch.broadcast_to(
-        torch.as_tensor(length, dtype=poses.dtype, device=poses.device) / 2.0, (a_n,))
+        torch.as_tensor(length, dtype=poses.dtype, device=poses.device) / 2.0, shape)
     hw = torch.broadcast_to(
-        torch.as_tensor(width, dtype=poses.dtype, device=poses.device) / 2.0, (a_n,))
-    hits = torch.zeros(poses.shape[:-1], dtype=torch.bool, device=poses.device)
+        torch.as_tensor(width, dtype=poses.dtype, device=poses.device) / 2.0, shape)
+    hits = torch.zeros(shape, dtype=torch.bool, device=poses.device)
     for k in range(1, a_n // 2 + 1):
         other = torch.roll(poses, -k, dims=-2)
-        o = _obb_overlap(poses, other, hl, hw, torch.roll(hl, -k),
-                         torch.roll(hw, -k))
+        o = _obb_overlap(poses, other, hl, hw, torch.roll(hl, -k, dims=-1),
+                         torch.roll(hw, -k, dims=-1))
         hits = hits | o
         if not (a_n % 2 == 0 and k == a_n // 2):
             hits = hits | torch.roll(o, k, dims=-1)

@@ -33,9 +33,15 @@ grown to a common cell grid (``pad_texture``) and stacked
 rows by ``midx * N`` into the flat (M * N, C*T) view, which every branch
 above reads as it reads one map's texture.
 
-The float64 fast scan and ``scan_backend="xla"`` raise
-``NotImplementedError``; the exact scan (``scan_mode="exact"``) is
-``ops/scan.py``'s and builds no texture.
+The float64 fast scan and the fast scan with ``scan_backend="xla"`` run
+what JAX runs where no Pallas kernel applies (``use_kernels`` false): the
+prep chain, then :func:`xla_tail`, the eager counterpart of JAX's XLA
+branches (blend or ramp render, mask and clip); the env step adds the
+noise, the iTTC check and the opponent pass eagerly after it.  No scan
+kernel launches there, since JAX launches no Pallas kernel there either;
+the kernels take float32 only.  The texture of a float64 config is built
+in float64 (the march kernel's double instance on the card).  The exact
+scan (``scan_mode="exact"``) is ``ops/scan.py``'s and builds no texture.
 """
 
 from __future__ import annotations
@@ -87,27 +93,20 @@ class RangeTexture(NamedTuple):
 
 
 def check_supported(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for a config whose scan path is not ported,
-    and ValueError for a kernel knob set "on" outside its kernel's scope.
-
-    The port runs the exact scan in float32 and float64, and the fast scan
-    in float32: linear theta through the megakernel or the unfused branch,
-    spectral theta through the spectral render.  The float64 fast scan
-    names its ROADMAP item; ``scan_backend``, which picks the fast scan's
-    backend, is refused only there."""
-    if cfg.scan_mode == "fast" and cfg.dtype != "float32":
-        raise NotImplementedError(
-            "the fast scan runs in float32 only: its kernels take float32 "
-            "(ROADMAP queue A: the float64 fast scan)")
-    if cfg.scan_mode == "fast" and cfg.scan_backend == "xla":
-        raise NotImplementedError(
-            "scan_backend='xla' names the TPU compiler's path; the port has "
-            "only its kernels (use 'auto' or 'pallas')")
-    # the env step resolves these knobs as below; an "on" out of scope
-    # raises here, before the texture is built
+    """Raise ValueError for a kernel knob set "on" outside its kernel's
+    scope, before the texture is built: the env step resolves the knobs
+    as below."""
     use_fused_ttc(cfg)
     if not use_megakernel(cfg):
         use_fused_opp(cfg)
+
+
+def use_kernels(cfg: SimConfig) -> bool:
+    """True iff the fast scan's kernels may run (JAX ``_use_pallas`` on a
+    backend with its kernels): float32, and ``scan_backend`` not "xla".
+    The float64 fast scan and ``scan_backend="xla"`` run the prep chain and
+    :func:`xla_tail`, as JAX does where no Pallas kernel applies."""
+    return cfg.dtype == "float32" and cfg.scan_backend != "xla"
 
 
 def use_megakernel(cfg: SimConfig) -> bool:
@@ -120,12 +119,13 @@ def use_megakernel(cfg: SimConfig) -> bool:
         return False
     ok = (cfg.scan_mode == "fast" and cfg.rt_spatial == "nearest1"
           and cfg.scan_interp == "linear" and cfg.rt_eff_occlusion == "edge"
-          and cfg.rt_grad and cfg.dtype == "float32")
+          and cfg.rt_grad and use_kernels(cfg))
     if cfg.scan_megakernel == "on" and not ok:
         raise ValueError(
             "scan_megakernel='on' needs scan_mode='fast', "
             "rt_spatial='nearest1', scan_interp='linear', "
-            "rt_occlusion='edge', rt_grad=True and dtype='float32'")
+            "rt_occlusion='edge', rt_grad=True, dtype='float32' and a "
+            "scan_backend other than 'xla'")
     return ok
 
 
@@ -140,12 +140,13 @@ def use_fused_ttc(cfg: SimConfig) -> bool:
     limit on the agent count does not apply."""
     if cfg.fuse_scan_ttc == "off":
         return False
-    ok = cfg.scan_mode == "fast" and (cfg.rt_eff_occlusion == "edge"
-                                      or cfg.scan_interp == "spectral")
+    ok = (cfg.scan_mode == "fast" and use_kernels(cfg)
+          and (cfg.rt_eff_occlusion == "edge" or cfg.scan_interp == "spectral"))
     if cfg.fuse_scan_ttc == "on" and not ok:
         raise ValueError(
-            "fuse_scan_ttc='on' needs scan_mode='fast' and rt_occlusion='edge' "
-            "or scan_interp='spectral'")
+            "fuse_scan_ttc='on' needs scan_mode='fast', dtype='float32', a "
+            "scan_backend other than 'xla', and rt_occlusion='edge' or "
+            "scan_interp='spectral'")
     return ok
 
 
@@ -172,7 +173,8 @@ def use_fused_opp(cfg: SimConfig) -> bool:
         if cfg.fuse_scan_opp == "on":
             raise ValueError(
                 "fuse_scan_opp='on' needs the fused edge + iTTC path "
-                "(fuse_scan_ttc resolving on, rt_occlusion='edge') and "
+                "(fuse_scan_ttc resolving on: dtype='float32' and a "
+                "scan_backend other than 'xla'; rt_occlusion='edge') and "
                 "num_agents >= 2")
         return False
     return True
@@ -757,9 +759,70 @@ def snap_epilogue(spec_r, f_s, wsum, gmat, c_frac, max_range: float,
     return torch.clamp(out, 0.0, max_range)
 
 
-def _check_fp32_matmul(device) -> None:
+def xla_tail(sp: Spectra, rtex: RangeTexture, cfg: SimConfig, midx=None):
+    """The fast scan's render where no kernel applies, eager (JAX
+    trace_fast_mxu's XLA branches, :1291-1370): from the rolled spectra of
+    poses (...) to the clean scan (..., B).
+
+    Spectral theta: ``spec_r @ smat``.  Linear theta: the three shuffled
+    taps ``spec_r @ gmat``, then the plain 3-tap blend (occlusion "off"),
+    the snap epilogue ("snap", :func:`snap_epilogue`), or the (e, w) ramp
+    ("edge"), whose e/w taps take only gmat's first 2B columns and run in
+    ``rt_ew_dtype`` (the scan dtype under "auto", as JAX off a TPU keeps
+    it; float64 taps stay float64).  Then the empty-cell mask and the clip
+    to [0, max_range].  The noise add, iTTC check and opponent pass are
+    the env step's."""
+    dtype = rtex.fmat.dtype
+    b_n = cfg.num_beams
+    spec_r, f_s, wsum = sp.spec_r, sp.f_s, sp.wsum[..., None]
+    if cfg.scan_interp == "spectral":
+        out = torch.matmul(spec_r, rtex.smat)
+        out = torch.where(wsum > 0, out, torch.zeros_like(out))
+        return torch.clamp(out, 0.0, cfg.max_range)
+    eff_occ = cfg.rt_eff_occlusion
+    c_frac = rtex.c_frac
+    if eff_occ == "snap":
+        batch = tuple(spec_r.shape[:-1])
+        thresh = cfg.rt_occlusion_cells * _cell_size(rtex, dtype, midx)
+        if midx is not None:   # a row's threshold against its beams
+            thresh = torch.broadcast_to(thresh, batch + (1,)).reshape(-1, 1)
+        out = snap_epilogue(spec_r.reshape(-1, spec_r.shape[-1]), f_s.reshape(-1),
+                            wsum.reshape(-1), rtex.gmat, c_frac, cfg.max_range, thresh)
+        return out.reshape(batch + (b_n,))
+    if eff_occ == "edge":
+        ew = torch.bfloat16 if cfg.rt_ew_dtype == "bfloat16" else dtype
+        g = torch.matmul(spec_r[..., 0, :], rtex.gmat)                  # (..., 3B)
+        g_ew = torch.matmul(spec_r[..., 1:, :].to(ew), rtex.gmat[:, :2 * b_n].to(ew))
+        g_e = g_ew[..., 0, :].to(dtype)                                 # (..., 2B)
+        g_w = g_ew[..., 1, :].to(dtype)
+    else:
+        g = torch.matmul(spec_r, rtex.gmat)
+    g0, g1, g2 = g[..., :b_n], g[..., b_n:2 * b_n], g[..., 2 * b_n:]
+    alpha = f_s[..., None] + c_frac                                     # (..., B) in [0, 2)
+    if eff_occ == "off":
+        w0 = torch.clamp(1.0 - alpha, min=0.0)
+        w2 = torch.clamp(alpha - 1.0, min=0.0)
+        w1 = 1.0 - w0 - w2
+        out = w0 * g0 + w1 * g1 + w2 * g2
+    else:
+        # the active pair's left tap carries (e, w); a smooth pair has
+        # (0.5, 1), which is the lerp exactly
+        frac = alpha - torch.floor(alpha)
+        lt = alpha < 1.0
+        ga = torch.where(lt, g0, g1)
+        gb = torch.where(lt, g1, g2)
+        e_sel = torch.clamp(torch.where(lt, g_e[..., :b_n], g_e[..., b_n:]), 0.0, 1.0)
+        w_sel = torch.clamp(torch.where(lt, g_w[..., :b_n], g_w[..., b_n:]),
+                            1.0 / 32.0, 1.0)
+        aa = torch.clamp((frac - (e_sel - 0.5 * w_sel)) / w_sel, 0.0, 1.0)
+        out = ga + aa * (gb - ga)
+    out = torch.where(wsum > 0, out, torch.zeros_like(out))
+    return torch.clamp(out, 0.0, cfg.max_range)
+
+
+def _check_fp32_matmul(device, dtype) -> None:
     """The unfused branch's float32 matrix products must not run in TF32."""
-    if torch.device(device).type == "cuda" and (
+    if dtype == torch.float32 and torch.device(device).type == "cuda" and (
             torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
             "the fast scan needs full float32 matrix products on CUDA: set "
@@ -814,9 +877,14 @@ def trace_fast_mxu(pose, tables, tmap: TrackMap, rtex: RangeTexture,
         raise ValueError("fused_ttc needs rt_occlusion='edge' or "
                          "scan_interp='spectral': only the edge and spectral "
                          "renders have a fused noise + iTTC epilogue")
-    _check_fp32_matmul(pose.device)
+    _check_fp32_matmul(pose.device, rtex.fmat.dtype)
     t_bins = cfg.rt_theta_bins
     sp = rolled_spectra(pose, tmap, rtex, cfg, midx)
+    if not use_kernels(cfg):
+        if fused_ttc is not None:
+            raise ValueError("fused_ttc needs the scan kernels: dtype='float32' "
+                             "and a scan_backend other than 'xla'")
+        return xla_tail(sp, rtex, cfg, midx)
     f_s, wsum = sp.f_s.reshape(-1), sp.wsum.reshape(-1)
     if spectral:
         spec = sp.spec_r.reshape(-1, t_bins)
@@ -850,14 +918,8 @@ def trace_fast_mxu(pose, tables, tmap: TrackMap, rtex: RangeTexture,
                 tables.beam_cosines, tables.beam_sines, tables.side_distances,
                 opp.reshape(-1, opp.shape[-1]), **tail)
         return out.reshape(batch + (b_n,)), hit.reshape(batch)
-    spec = sp.spec_r.reshape(-1, t_bins)
-    if eff_occ == "off":
-        out = blend_kernels.theta_shuffle_blend(
-            spec, f_s, wsum, rtex.gmat, rtex.c_frac, cfg.max_range)
-    else:
-        thresh = cfg.rt_occlusion_cells * _cell_size(rtex, spec.dtype, midx)
-        if midx is not None:   # a row's threshold against its beams
-            thresh = torch.broadcast_to(thresh, batch + (1,)).reshape(-1, 1)
-        out = snap_epilogue(spec, f_s, wsum, rtex.gmat, rtex.c_frac,
-                            cfg.max_range, thresh)
+    if eff_occ == "snap":   # no kernel: the eager epilogue, as JAX's XLA code
+        return xla_tail(sp, rtex, cfg, midx)
+    out = blend_kernels.theta_shuffle_blend(
+        sp.spec_r.reshape(-1, t_bins), f_s, wsum, rtex.gmat, rtex.c_frac, cfg.max_range)
     return out.reshape(batch + (b_n,))

@@ -221,3 +221,23 @@ class Viewer:
 
     def close(self):
         self._plt.close(self.fig)
+
+
+def plot_trajectory(tmap, xs, ys, path: str, title: str, dpi: int = 120) -> None:
+    """Write a PNG of the map raster with a trajectory (xs, ys) over it
+    (``examples/waypoint_follow.py --render``), headless (Agg)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    occ = _np(tmap.occupancy)
+    res = float(tmap.resolution)
+    ox, oy = float(tmap.orig_x), float(tmap.orig_y)
+    h, w = occ.shape
+    fig = plt.figure(figsize=(8, 8))
+    plt.imshow(occ, cmap="gray", origin="lower",
+               extent=[ox, ox + w * res, oy, oy + h * res])
+    plt.plot(_np(xs), _np(ys), "r-", lw=1)
+    plt.title(title)
+    fig.savefig(path, dpi=dpi)
+    plt.close(fig)

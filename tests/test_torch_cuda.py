@@ -39,7 +39,7 @@ import torch
 
 from chip_smoke import (close_poses, launch_counts, map_free_poses, map_of_stack,
                         params_of_stack, per_map_poses, random_free_poses, random_states,
-                        reset_launch_counts, vec_hand_loop)
+                        reset_launch_counts, to_cpu, vec_hand_loop)
 from red_gym_tpu_torch import assets, env, rollout, vec_env
 from red_gym_tpu_torch.config import Integrator, SimConfig
 from red_gym_tpu_torch.maps.loader import load_map, stack_maps
@@ -1382,3 +1382,93 @@ def test_planning_env_step_on_gpu_matches_cpu():
         torch.testing.assert_close(xg, xc, rtol=0, atol=1e-9)
         assert torch.equal(bg, bc) and torch.equal(dg, dc)
         torch.testing.assert_close(rg, rc, rtol=1e-6, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the tooling tier: kernel E, the float64 fast scan, the lap-time evaluator
+# ---------------------------------------------------------------------------
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+
+
+EDT_MAPS = assets.packaged_tracks() + [BERLIN, os.path.join(assets.DATA_DIR, "classic",
+                                                             "skirk.yaml")]
+
+
+@pytest.mark.parametrize("path", EDT_MAPS, ids=os.path.basename)
+def test_edt_kernel_equals_twin_on_every_map(path):
+    """Kernel E bit-equal to its twin (torch.equal) on each packaged map, and
+    within scipy's bar (rtol 1e-6, atol 1e-5)."""
+    _need_gpu()
+    from scipy.ndimage import distance_transform_edt
+    from red_gym_tpu_torch.maps import loader as map_loader
+    from red_gym_tpu_torch.ops import edt_kernels
+
+    occ = map_loader.load_map_image(path[:-len(".yaml")] + ".png")
+    res = map_loader.read_map_yaml(path)["resolution"]
+    o = torch.as_tensor(occ, device="cuda")
+    before = edt_kernels.edt_transform.launches
+    got = edt_kernels.edt_transform(o, res)
+    assert edt_kernels.edt_transform.launches == before + 1
+    assert torch.equal(got, edt_kernels.edt_reference(o, res))
+    np.testing.assert_allclose(got.cpu().numpy(), distance_transform_edt(occ) * res,
+                               rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape, density", [((64, 64), 0.05), ((63, 41), 0.3), ((1, 1), 0.0),
+                                            ((9, 11), 0.0), ((9, 11), 1.0), ((2896, 7), 0.01),
+                                            ((7, 3000), 0.01), ((1000, 1300), 0.01),
+                                            ((257, 255), 0.5)])
+def test_edt_kernel_block_edges_and_degenerate_grids(shape, density):
+    """Rows and columns around the kernels' blocks and tiles, all-free
+    (JAX's sentinel) and all-occupied grids: torch.equal to the twin."""
+    _need_gpu()
+    from red_gym_tpu_torch.ops import edt_kernels
+
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    o = torch.as_tensor((rng.random(shape) >= density).astype(np.float32), device="cuda")
+    assert torch.equal(edt_kernels.edt_transform(o, 0.05), edt_kernels.edt_reference(o, 0.05))
+
+
+def test_float64_fast_scan_on_gpu_matches_cpu():
+    """The float64 fast scan (prep chain + xla_tail, the texture marched in
+    float64 by the march kernel) on the card against the same call on the
+    CPU with the card's texture: within 1e-9 m; no scan kernel launched."""
+    _need_gpu()
+    cfg = SimConfig(num_agents=2, num_beams=1080, scan_mode="fast", dtype="float64",
+                    rt_pose_stride=8)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
+        gp = env.make_params(cfg, assets.named_map_yaml(TRACK), device=torch.device("cuda"))
+    assert gp.rtex.rt.dtype == torch.float64
+    cp = to_cpu(gp)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    poses = random_free_poses(gp, 512, gen).reshape(256, 2, 3)
+    reset_launch_counts()
+    got = scan_fast.trace_fast_mxu(poses, gp.tables, gp.tmap, gp.rtex, cfg)
+    assert not any(launch_counts().values())
+    want = scan_fast.trace_fast_mxu(poses.cpu(), cp.tables, cp.tmap, cp.rtex, cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-9)
+
+
+def test_laptime_evaluator_float64_gpu_matches_cpu():
+    """The CMA-ES evaluator in float64 (exact scan, 64 beams, march_iters
+    32) for 4 candidates x 200 steps: the card's fitness within 1e-9 of
+    the CPU's."""
+    _need_gpu()
+    from red_gym_tpu_torch.agents import pure_pursuit as pp
+    from red_gym_tpu_torch.tuning import make_laptime_evaluator
+
+    cfg = SimConfig(num_agents=1, num_beams=64, dtype="float64", march_iters=32,
+                    scan_noise_std=0.0)
+    pop = {"m": np.array([3.2, 3.74, 3.9, 3.5]), "lf": np.array([0.15, 0.15875, 0.165, 0.16]),
+           "tlad": np.array([0.6, 0.82, 1.5, 3.0]), "vgain": np.array([0.8, 1.0, 1.2, 1.4])}
+    fit = {}
+    for dev in ("cuda", "cpu"):
+        w = pp.load_waypoints_csv(assets.waypoints_csv(TRACK), device=dev)
+        fit[dev] = make_laptime_evaluator(cfg, assets.named_map_yaml(TRACK), w, 200,
+                                          assets.waypoint_start_poses(TRACK, 1)[0],
+                                          device=dev)(pop).cpu().numpy()
+    np.testing.assert_allclose(fit["cuda"], fit["cpu"], rtol=0, atol=1e-9)

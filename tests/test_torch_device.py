@@ -20,6 +20,12 @@ from red_gym_tpu_torch.examples import train_sac, train_sac_bitmap_scale, train_
 from red_gym_tpu_torch.maps import loader
 from red_gym_tpu_torch.ops import scan
 from red_gym_tpu_torch.utils.profiling import Metrics
+from red_gym_tpu_torch.agents import ppo
+from red_gym_tpu_torch.agents.pure_pursuit import load_waypoints_csv
+from red_gym_tpu_torch.examples import (collect_lidar_dataset, export_policy,
+                                        param_search_cma, waypoint_follow)
+from red_gym_tpu_torch.tuning import make_laptime_evaluator, search
+from red_gym_tpu_torch.utils import export
 
 TRACK = "track_0019"
 CFG = SimConfig(num_beams=270, scan_mode="fast", rt_pose_stride=8)
@@ -41,7 +47,20 @@ ENTRY_POINTS = {
     "agents.sac.SAC": SAC,
     "agents.sac.ReplayBuffer.create": ReplayBuffer.create,
     "utils.profiling.Metrics.init": Metrics.init,
+    "tuning.make_laptime_evaluator": make_laptime_evaluator,
+    "tuning.search": search,
+    "utils.export.export_policy": export.export_policy,
+    "agents.pure_pursuit.load_waypoints_csv": load_waypoints_csv,
 }
+TOOL_EXAMPLES = {"param_search_cma": param_search_cma, "export_policy": export_policy,
+                 "waypoint_follow": waypoint_follow,
+                 "collect_lidar_dataset": collect_lidar_dataset}
+TOOL_CFG = SimConfig(num_agents=1, num_beams=16, march_iters=8, scan_noise_std=0.0)
+
+
+def _waypoints_cpu():
+    return load_waypoints_csv(assets.waypoints_csv(TRACK), device="cpu")
+
 SAC_TRAINERS = {"train_sac": train_sac, "train_sac_bitmap_scale": train_sac_bitmap_scale,
                 "train_sac_scale": train_sac_scale}
 
@@ -77,6 +96,17 @@ CALLS_WITHOUT_DEVICE = {
     "utils.profiling.Metrics.init": lambda: Metrics.init(("reward",)),
     **{f"examples.{name}.build": (lambda m=m: m.build(m.parse_args([])))
        for name, m in SAC_TRAINERS.items()},
+    "tuning.make_laptime_evaluator": lambda: make_laptime_evaluator(
+        TOOL_CFG, assets.named_map_yaml(TRACK), _waypoints_cpu(), 5,
+        assets.waypoint_start_poses(TRACK, 1)[0]),
+    "tuning.search": lambda: search(TOOL_CFG, assets.named_map_yaml(TRACK), _waypoints_cpu(),
+                                    assets.waypoint_start_poses(TRACK, 1)[0], popsize=2,
+                                    generations=1, steps=5, log=None),
+    "utils.export.export_policy": lambda: export.export_policy(
+        export.deterministic_ppo_control(ppo.ScanPolicy(hidden=8), ppo.PPOConfig()),
+        (torch.zeros(1, 1080), torch.zeros(1))),
+    "agents.pure_pursuit.load_waypoints_csv": lambda: load_waypoints_csv(
+        assets.waypoints_csv(TRACK)),
     "gym_vector.F110VectorEnv": lambda: _gymnasium().make_vec(
         "red_gym_tpu_torch/f110-v0", num_envs=2, map=assets.named_map_yaml(TRACK),
         num_beams=270),
@@ -106,6 +136,20 @@ def test_call_without_device_raises_without_a_gpu(name):
 @pytest.mark.parametrize("name", list(SAC_TRAINERS))
 def test_sac_trainer_device_flag_defaults_to_cuda(name):
     assert SAC_TRAINERS[name].parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("name", list(TOOL_EXAMPLES))
+def test_tool_example_device_flag_defaults_to_cuda(name):
+    assert TOOL_EXAMPLES[name].parse_args([]).device == "cuda"
+
+
+def test_device_edt_follows_the_map_device():
+    """load_map(edt_backend="device") runs the EDT on the map's device: the
+    default raises without a GPU, as every other entry point."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default device is usable")
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        loader.load_map(assets.named_map_yaml(TRACK), edt_backend="device")
 
 
 def test_resolve_device_passes_cpu_through():

@@ -31,6 +31,7 @@ from red_gym_tpu import rollout as jrollout
 from red_gym_tpu.config import SimConfig as JSimConfig
 from red_gym_tpu_torch import assets, env as tenv, interop, rollout as trollout
 from red_gym_tpu_torch.config import SimConfig as TSimConfig
+from red_gym_tpu_torch.ops import blend_kernels, scan_kernels, spectral_kernels, state_kernels
 
 E, A, B = 160, 2, 270
 STEPS = 30
@@ -223,10 +224,32 @@ def _kw_id(v):
     (dict(dtype="float64"), "the float64 fast scan"),
     (dict(scan_backend="xla"), "scan_backend='xla'"),
 ], ids=_kw_id)
-def test_unported_paths_raise_naming_their_roadmap_item(kw, item):
-    cfg = TSimConfig(**{**dict(scan_mode="fast", num_beams=B), **kw})
-    with pytest.raises(NotImplementedError, match=item):
-        tenv.make_params(cfg, assets.named_map_yaml(TRACK), device="cpu")
+def test_unported_paths_raise_naming_their_roadmap_item(kw, item, monkeypatch):
+    """The two paths that raised before ROADMAP A6 was ported (the float64
+    fast scan, ``scan_backend='xla'``) now build and step: ``make_params``
+    builds the texture, and one step runs JAX's XLA branches eagerly, with
+    no scan kernel (no twin on the CPU) called.  tests/test_torch_fast64.py
+    holds them against JAX."""
+    monkeypatch.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
+    calls = []
+    for mod, name in ((scan_kernels, "mega_edge_ttc"),
+                      (spectral_kernels, "theta_spectral_ttc"),
+                      (state_kernels, "prestep"),
+                      *((blend_kernels, f.__name__) for f in blend_kernels.KERNELS)):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, **k: calls.append(1) or _r(*a, **k))
+    cfg = TSimConfig(**{**dict(scan_mode="fast", num_beams=B, rt_pose_stride=16,
+                               rt_theta_bins=16), **kw})
+    params = tenv.make_params(cfg, assets.named_map_yaml(TRACK), device="cpu")
+    assert params.rtex is not None and params.rtex.fmat.dtype == cfg.tdtype, item
+    poses = torch.as_tensor(assets.waypoint_start_poses(TRACK, A)[None], dtype=cfg.tdtype)
+    gen = torch.Generator().manual_seed(0)
+    state, obs, *_ = tenv.reset(cfg, params, poses, gen)
+    state, obs, *_ = tenv.step(cfg, params, state,
+                               torch.tensor([[[0.0, 2.0], [0.0, 2.0]]], dtype=cfg.tdtype), gen)
+    assert obs.scans.shape == (1, A, B) and obs.scans.dtype == cfg.tdtype
+    assert torch.isfinite(obs.scans).all() and float(obs.scans.max()) > 1.0
+    assert calls == [], f"{item}: a scan kernel ran"
 
 
 @pytest.mark.parametrize("kw, knob", [

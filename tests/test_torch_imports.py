@@ -36,7 +36,12 @@ def test_package_has_sources():
             "ops/rasterize.py", "ops/raster_kernels.py", "ops/bitmap_rewards.py",
             "agents/mpc.py", "agents/planning_env.py", "agents/sac.py",
             "examples/train_sac.py", "examples/train_sac_scale.py",
-            "examples/train_sac_bitmap_scale.py"} <= names
+            "examples/train_sac_bitmap_scale.py", "ops/edt.py", "ops/edt_kernels.py",
+            "maps/trackgen.py", "maps/classic.py", "tuning/param_search.py",
+            "utils/export.py", "examples/param_search_cma.py",
+            "examples/export_policy.py", "examples/waypoint_follow.py",
+            "examples/waypoint_follow_compat.py",
+            "examples/collect_lidar_dataset.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, PKG))
@@ -67,3 +72,33 @@ def test_gymnasium_and_matplotlib_stay_in_their_modules(path):
         if root == "matplotlib":
             assert rel == "render/viewer.py" and not at_top, \
                 f"{rel} imports {name}" + (" at module level" if at_top else "")
+
+
+# the tooling tier (maps, EDT, tuning, export and their examples): each
+# imports in a fresh interpreter where the packages the GPU machine lacks
+# (and JAX) cannot be imported at all
+TOOL_MODULES = ["red_gym_tpu_torch.ops.edt", "red_gym_tpu_torch.ops.edt_kernels",
+                "red_gym_tpu_torch.maps.loader", "red_gym_tpu_torch.maps.trackgen",
+                "red_gym_tpu_torch.maps.classic", "red_gym_tpu_torch.tuning",
+                "red_gym_tpu_torch.utils.export",
+                "red_gym_tpu_torch.examples.param_search_cma",
+                "red_gym_tpu_torch.examples.export_policy",
+                "red_gym_tpu_torch.examples.waypoint_follow",
+                "red_gym_tpu_torch.examples.waypoint_follow_compat",
+                "red_gym_tpu_torch.examples.collect_lidar_dataset"]
+ABSENT = ("jax", "jaxlib", "flax", "red_gym_tpu", "PIL", "cv2", "yaml", "gymnasium",
+          "matplotlib")
+
+
+@pytest.mark.parametrize("module", TOOL_MODULES)
+def test_tool_modules_need_no_absent_package(module):
+    import subprocess
+    import sys
+
+    code = (f"import sys\n"
+            f"for name in {ABSENT!r}:\n"
+            f"    sys.modules[name] = None   # import raises ImportError\n"
+            f"import {module}\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=os.path.dirname(PKG), timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
