@@ -189,9 +189,9 @@ line:
      red_gym_tpu/ops/edt.py, no TPU kernel) on the 11 packaged tracks,
      berlin, skirk and the generated track: torch.equal to its twin on the
      card and within scipy's bar (rtol 1e-6, atol 1e-5); on track_0019 and
-     the largest map its times, bound (2 H^2 W operations of the column
-     pass at the float32 rate, or bytes), registers, spills and scipy's
-     host seconds;
+     the largest map its times, bound (the bytes, against the linear
+     operations of a row pass and a per-column lower envelope), registers,
+     spills and scipy's host seconds;
    - [trackgen]: maps.trackgen.generate(seed 0) on the host, load_map with
      edt_backend="device" (kernel E once) and the texture marched on the
      card, then the default path for 200 steps from the generated CSV's
@@ -201,8 +201,12 @@ line:
      32, no noise) on track_0019, one generation of 500 steps (cut from the
      example's 15 x 4500): the march kernel once a step and the reset step,
      every other kernel 0, fitness finite, ms a step, rollouts/s and a
-     torch.profiler summary of 5 steps; the evaluator in float64 at popsize
-     4 x 200 steps on the card and the CPU within 1e-9;
+     torch.profiler summary of 5 steps; the march kernel torch.equal to its
+     twin on the final poses of a 300-step float32 race of 50 candidates;
+     the evaluator in float64 at popsize 4 x 200 steps on the card and the
+     CPU: final state, scans, lap times and fitness within 1e-9, toggles
+     and crash flags equal (200 steps finish no lap, so the fitness alone
+     is the budget plus a penalty);
    - [fast64]: the default config in float64 (texture marched in float64 by
      the march kernel) for 50 timed steps at 16384 x 2 x 1080, no scan
      kernel (JAX launches no Pallas kernel there either), the first 256
@@ -2123,9 +2127,13 @@ def sac_phase(dev, smi: str) -> dict:
 
 STACK_NAME = "multimap_pad"  # track_0019 padded to the multi-map stack's size
 EDT_ROW_OPS = 8            # row pass: a load, a compare and the two squared distances a pixel
+EDT_COL_OPS = 12           # column pass by a lower envelope of parabolas: an intersection
+                           # (two products, three adds, a divide), its compare and the query's
+                           # square, add and compare a pixel
 TRACKGEN_SEED = 0
 PARAM_POP, PARAM_BEAMS = 50, 64    # examples/param_search_cma.py's width
 PARAM_STEPS = 500          # one generation, cut from the example's 15 x 4500 steps
+PARAM_CHECK_STEPS = 300    # the float32 race whose poses hold the march kernel to its twin
 PARAM_F64_POP, PARAM_F64_STEPS = 4, 200
 FAST64_STEPS = 50
 FAST64_CHECK_ENVS = 256
@@ -2134,13 +2142,15 @@ RACE_STEPS = 200
 
 
 def edt_bound(occ, out) -> dict:
-    """Kernel E's bound on one map: the column pass's add and min a (pixel,
-    row) pair and the row pass's EDT_ROW_OPS a pixel at the float32 rate,
-    against the occupancy read once, D1 written and read once and the
-    output written once."""
+    """The exact EDT's bound on one map: the occupancy read once, D1
+    written and read once and the output written once, against the linear
+    work of the function (the row pass's EDT_ROW_OPS and a per-column lower
+    envelope's EDT_COL_OPS a pixel, at the float32 rate).  Kernel E's
+    brute-force column pass does H times that column work; the bound
+    counts what the function needs, not what this kernel does."""
     h, w = occ.shape
     moved = nbytes(occ, out) + 2 * 4 * h * w
-    return bound(moved, f32=2.0 * h * h * w + EDT_ROW_OPS * h * w)
+    return bound(moved, f32=(EDT_ROW_OPS + EDT_COL_OPS) * h * w)
 
 
 def edt_phase(maps: list, dev, reports) -> dict:
@@ -2249,9 +2259,14 @@ def param_search_phase(dev):
     march_iters 32, no noise) on track_0019 for one generation of
     PARAM_STEPS steps: the march kernel once a step and the reset step,
     every other kernel 0, fitness finite; ms a step and rollouts/s; a
-    torch.profiler summary of 5 evaluator steps; then the evaluator in
-    float64 at popsize 4 x 200 steps on the card and on the CPU, fitness
-    within 1e-9."""
+    torch.profiler summary of 5 evaluator steps; the march kernel
+    torch.equal to its twin on the final float32 poses of a
+    PARAM_CHECK_STEPS-step race of 50 candidates, and the race's scans
+    equal to that twin; then the evaluator in float64 at popsize 4 x 200
+    steps on the card and on the CPU.  200 steps (2 s) finish no lap, so
+    each fitness is the budget plus a penalty: the race it is taken from
+    is compared too, final state, scans and lap times within 1e-9, crash
+    flags and toggles equal, and the fitness within 1e-9."""
     import dataclasses as dc
 
     import numpy as np
@@ -2260,6 +2275,7 @@ def param_search_phase(dev):
     from red_gym_tpu_torch import assets
     from red_gym_tpu_torch.agents import pure_pursuit as pp
     from red_gym_tpu_torch.examples.param_search_cma import make_config
+    from red_gym_tpu_torch.ops import march_kernels as mk
     from red_gym_tpu_torch.tuning import make_laptime_evaluator, search
 
     cfg = make_config(PARAM_BEAMS)
@@ -2299,18 +2315,42 @@ def param_search_phase(dev):
         f"device busy {busy_ms:.2f} ms ({busy_ms / (PROFILE_STEPS + 1):.3f} ms a step); "
         f"wall {wall_ms:.2f} ms a step without the profiler")
 
+    ev = make_laptime_evaluator(cfg, yml, wpts, PARAM_CHECK_STEPS, start, device=dev)
+    _, obs, crashed = ev.rollout(pop)
+    poses = torch.stack([obs.poses_x, obs.poses_y, obs.poses_theta], dim=-1)
+    tables, tmap = ev.params.tables, ev.params.tmap
+    got = mk.march_beams(poses, tables.cosines, tables.sines, tmap, cfg)
+    twin = mk.march_beams_reference(poses, tables.cosines, tables.sines, tmap, cfg)
+    same, race_same = torch.equal(got, twin), torch.equal(obs.scans, twin)
+    say("param_search", f"march on the final float32 poses of a {PARAM_CHECK_STEPS}-step race "
+        f"of {PARAM_POP} candidates ({int(crashed.sum())} crashed; {tuple(poses.shape)} poses, "
+        f"march_iters {cfg.march_iters}): kernel torch.equal to its twin {same}, the race's "
+        f"scans torch.equal to the twin {race_same}")
+    if not (same and race_same):
+        fail("param_search: the march kernel differs from its twin on the evaluator's poses")
+
     c64 = dc.replace(cfg, dtype="float64")
     small = {k: v[:PARAM_F64_POP] for k, v in pop.items()}
-    fit = {}
+    races = []  # the card's race, then the CPU's
     for d in (dev, torch.device("cpu")):
         w64 = pp.load_waypoints_csv(assets.waypoints_csv(TRACK), device=d)
-        fit[d.type] = make_laptime_evaluator(c64, yml, w64, PARAM_F64_STEPS, start,
-                                             device=d)(small).cpu().numpy()
-    diff = float(np.abs(fit["cuda"] - fit["cpu"]).max())
+        ev = make_laptime_evaluator(c64, yml, w64, PARAM_F64_STEPS, start, device=d)
+        state, obs, crashed = ev.rollout(small)
+        races.append({"fitness": ev.fitness(state, crashed), "x": state.x, "scans": obs.scans,
+                      "lap_times": state.lap_times, "toggles": state.toggle_list,
+                      "crashed": crashed})
+    card, host = ({k: v.cpu() for k, v in r.items()} for r in races)
+    diffs = {k: float((card[k] - host[k]).abs().max())
+             for k in ("fitness", "x", "scans", "lap_times")}
+    flags = all(torch.equal(card[k], host[k]) for k in ("toggles", "crashed"))
     say("param_search", f"float64 evaluator, popsize {PARAM_F64_POP} x {PARAM_F64_STEPS} "
-        f"steps: card {fit['cuda'].tolist()}, CPU {fit['cpu'].tolist()}, max |diff| {diff:.3e}")
-    if not diff <= 1e-9:
-        fail(f"param_search: float64 fitness differs between card and CPU by {diff}")
+        f"steps, card against CPU: fitness card {card['fitness'].tolist()}, CPU "
+        f"{host['fitness'].tolist()}; max |diff| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+        + f"; toggles and crash flags equal {flags}")
+    if not (flags and all(v <= 1e-9 for v in diffs.values())):
+        fail(f"param_search: the float64 race differs between card and CPU: {diffs}, "
+             f"flags equal {flags}")
     return counts, {"ms_per_step": 1e3 * seconds / PARAM_STEPS,
                     "rollouts_per_s": PARAM_POP / seconds, "profile_ops": ops,
                     "profile_busy_ms": busy_ms, "profile_wall_ms_per_step": wall_ms}

@@ -18,7 +18,10 @@ runs the spectral render, with the noise add and iTTC in its kernel where
 ``fuse_scan_ttc`` resolves on.  The kernels take float32: in float64, and
 under ``scan_backend="xla"``, every kernel knob's "auto" resolves off and
 its "on" raises ValueError, and the fast scan runs JAX's XLA branches
-eagerly (``ops/scan_fast.xla_tail``).
+eagerly (``ops/scan_fast.xla_tail``).  In float32, ``scan_backend="xla"``
+is an explicit eager reference mode, the counterpart of JAX's XLA branch
+for parity runs: it takes no kernel on any device, and no path that wants
+the card's speed should set it (the default "auto" runs the kernels).
 """
 
 from __future__ import annotations
@@ -161,7 +164,7 @@ class SimConfig:
     scan_mode: str = "exact"
     rt_theta_bins: int = 128
     rt_pose_stride: int = 2
-    scan_backend: str = "auto"
+    scan_backend: str = "auto"        # "xla": the eager reference mode, no kernel
     scan_interp: str = "linear"
     rt_dtype: str = "auto"
     rt_spatial: str = "nearest1"

@@ -34,10 +34,12 @@
 // once, correctly.  Built with -fmad=false (ops/_build.py).  So the kernel
 // is bit-equal to its twin and to JAX.
 //
-// What bounds it on the H100: the column pass's 2 H^2 W operations (an add
-// and a min a (pixel, row) pair; 1.48 G for track_0019's 920 x 875) at the
-// float32 rate, against the bytes of the occupancy read once, D1 written and
-// read once and the output written once (13 bytes a pixel).
+// What bounds the function on the H100: its bytes (the occupancy read once,
+// D1 written and read once and the output written once), since an exact EDT
+// needs only a few operations a pixel (a row pass and a lower envelope of
+// parabolas a column).  This kernel's brute-force column pass does 2 H^2 W
+// operations instead (an add and a min a (pixel, row) pair; 1.48 G for
+// track_0019's 920 x 875): its known gap to that bound.
 
 #include <cuda_runtime.h>
 

@@ -105,7 +105,9 @@ def use_kernels(cfg: SimConfig) -> bool:
     """True iff the fast scan's kernels may run (JAX ``_use_pallas`` on a
     backend with its kernels): float32, and ``scan_backend`` not "xla".
     The float64 fast scan and ``scan_backend="xla"`` run the prep chain and
-    :func:`xla_tail`, as JAX does where no Pallas kernel applies."""
+    :func:`xla_tail`, as JAX does where no Pallas kernel applies.  In
+    float32, "xla" is an explicit eager reference mode on every device
+    (parity with JAX's XLA branch), not a route for the card's speed."""
     return cfg.dtype == "float32" and cfg.scan_backend != "xla"
 
 

@@ -163,7 +163,9 @@ def make_laptime_evaluator(cfg: SimConfig, map_yaml: str, waypoints,
     100 for a candidate that crashed and the budget plus 10 a missing
     finish-line toggle for one that did not finish (JAX's formula).  The
     function carries ``params`` (the env params of the population's
-    template)."""
+    template), ``rollout``, the race alone: {field: (P,) values} ->
+    (final state, final observation, crashed (P,) bool), and ``fitness``
+    (final state, crashed) -> the fitness taken from that race."""
     device = resolve_device(device)
     params0 = envlib.make_params(cfg, map_yaml, map_ext, device=device)
     dt = cfg.tdtype
@@ -175,7 +177,7 @@ def make_laptime_evaluator(cfg: SimConfig, map_yaml: str, waypoints,
     pp_fields = [f for f in fields if f in ("tlad", "vgain")]
     assert set(veh_fields) | set(pp_fields) == set(fields)
 
-    def evaluate(pop: Dict[str, object]) -> torch.Tensor:
+    def rollout(pop: Dict[str, object]):
         env_params, ppp = population_params(cfg, params0, waypoints, pop)
         p_n = ppp.tlad.shape[0]
         gen = torch.Generator(device=device).manual_seed(0)
@@ -187,6 +189,9 @@ def make_laptime_evaluator(cfg: SimConfig, map_yaml: str, waypoints,
             act = torch.stack([steer, speed], dim=-1)[:, None, :]
             state, obs, *_ = envlib.step(cfg, env_params, state, act, gen)
             crashed = crashed | (obs.collisions[:, 0] > 0)
+        return state, obs, crashed
+
+    def fitness(state, crashed) -> torch.Tensor:
         toggles = state.toggle_list[:, 0]
         finished = toggles >= cfg.laps_to_finish_toggles
         # crashed: budget + stiff penalty; unfinished: budget + distance-to-go
@@ -195,7 +200,13 @@ def make_laptime_evaluator(cfg: SimConfig, map_yaml: str, waypoints,
         return torch.where(finished & ~crashed, state.lap_times[:, 0],
                            budget_time + penalty)
 
+    def evaluate(pop: Dict[str, object]) -> torch.Tensor:
+        state, _, crashed = rollout(pop)
+        return fitness(state, crashed)
+
     evaluate.params = params0
+    evaluate.rollout = rollout
+    evaluate.fitness = fitness
     return evaluate
 
 

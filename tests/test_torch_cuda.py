@@ -1456,7 +1456,9 @@ def test_float64_fast_scan_on_gpu_matches_cpu():
 def test_laptime_evaluator_float64_gpu_matches_cpu():
     """The CMA-ES evaluator in float64 (exact scan, 64 beams, march_iters
     32) for 4 candidates x 200 steps: the card's fitness within 1e-9 of
-    the CPU's."""
+    the CPU's, and, since 200 steps (2 s) finish no lap, the race it is
+    taken from too: final state and scans within 1e-9, crash flags and
+    toggles equal."""
     _need_gpu()
     from red_gym_tpu_torch.agents import pure_pursuit as pp
     from red_gym_tpu_torch.tuning import make_laptime_evaluator
@@ -1465,10 +1467,17 @@ def test_laptime_evaluator_float64_gpu_matches_cpu():
                     scan_noise_std=0.0)
     pop = {"m": np.array([3.2, 3.74, 3.9, 3.5]), "lf": np.array([0.15, 0.15875, 0.165, 0.16]),
            "tlad": np.array([0.6, 0.82, 1.5, 3.0]), "vgain": np.array([0.8, 1.0, 1.2, 1.4])}
-    fit = {}
+    fit, race = {}, {}
     for dev in ("cuda", "cpu"):
         w = pp.load_waypoints_csv(assets.waypoints_csv(TRACK), device=dev)
-        fit[dev] = make_laptime_evaluator(cfg, assets.named_map_yaml(TRACK), w, 200,
-                                          assets.waypoint_start_poses(TRACK, 1)[0],
-                                          device=dev)(pop).cpu().numpy()
+        ev = make_laptime_evaluator(cfg, assets.named_map_yaml(TRACK), w, 200,
+                                    assets.waypoint_start_poses(TRACK, 1)[0], device=dev)
+        state, obs, crashed = ev.rollout(pop)
+        fit[dev] = ev.fitness(state, crashed).cpu().numpy()
+        race[dev] = [t.cpu().numpy() for t in (state.x, obs.scans, state.lap_times,
+                                               state.toggle_list, crashed)]
     np.testing.assert_allclose(fit["cuda"], fit["cpu"], rtol=0, atol=1e-9)
+    for got, want in zip(race["cuda"][:3], race["cpu"][:3]):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    for got, want in zip(race["cuda"][3:], race["cpu"][3:]):
+        np.testing.assert_array_equal(got, want)

@@ -229,7 +229,9 @@ def test_unported_paths_raise_naming_their_roadmap_item(kw, item, monkeypatch):
     fast scan, ``scan_backend='xla'``) now build and step: ``make_params``
     builds the texture, and one step runs JAX's XLA branches eagerly, with
     no scan kernel (no twin on the CPU) called.  tests/test_torch_fast64.py
-    holds them against JAX."""
+    holds them against JAX.  The name is the one the test had while these
+    paths raised; it is kept so that the test's record stays one record:
+    read it as "the paths that were unported now run without kernels"."""
     monkeypatch.setenv("RED_GYM_TPU_TEXTURE_CACHE", "off")
     calls = []
     for mod, name in ((scan_kernels, "mega_edge_ttc"),

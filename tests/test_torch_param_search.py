@@ -6,7 +6,8 @@ The lap-time evaluator and ``search`` run on track_0019 (the reference's
 example map is not packaged; JAX's own tests of them need a reference
 checkout) in the float64 exact scan with 32 beams and ``march_iters`` 24,
 from the track's first waypoint: fitness within 1e-9 of JAX's for JAX's
-four candidates over 250 steps, and ``search`` at popsize 4, 2 generations,
+four candidates over 250 steps, with the final state, scans, crash flags,
+toggles and lap times of the race against JAX's, and ``search`` at popsize 4, 2 generations,
 120 steps: the best dict and the best fitness within 1e-9.  One env step
 with (P, 1) vehicle leaves, each env its own car, equals JAX's vmapped step
 within 1e-10 (float64).
@@ -81,19 +82,69 @@ def _inputs():
     return yml, csv, start
 
 
+def _jax_rollout(cfg, yml, waypoints, steps, start, pop):
+    """JAX's evaluator's race (tuning/param_search.py:141-186), vmapped
+    reset, step and plan under one jitted scan, returning what its fitness
+    is taken from: (final state, final observation, crashed)."""
+    p_n = len(next(iter(pop.values())))
+    params0 = jenv.make_params(cfg, yml)
+    veh = JVehicle(*[jnp.broadcast_to(jnp.asarray(pop.get(f, getattr(params0.vehicle, f)),
+                                                  jnp.float64), (p_n,))
+                     for f in JVehicle._fields])
+    env_params = params0._replace(vehicle=veh)
+    ppp = jpp.make_params(waypoints)
+    ppp = ppp._replace(tlad=jnp.asarray(pop["tlad"], jnp.float64),
+                       vgain=jnp.asarray(pop["vgain"], jnp.float64),
+                       wheelbase=veh.lf + veh.lr)
+    par_ax = jenv.EnvParams(vehicle=JVehicle(*([0] * len(JVehicle._fields))), tables=None,
+                            tmap=None, rtex=None)
+    ppp_ax = ppp.__class__(waypoints=None, tlad=0, vgain=0, wheelbase=0, max_reacquire=None)
+    reset_v = jax.vmap(lambda pr, po, k: jenv.reset(cfg, pr, po, k), in_axes=(par_ax, 0, 0))
+    step_v = jax.vmap(lambda pr, s, a: jenv.step(cfg, pr, s, a), in_axes=(par_ax, 0, 0))
+    plan_v = jax.vmap(jpp.plan, in_axes=(0, 0, 0, ppp_ax))
+
+    def body(carry, _):
+        state, obs, crashed = carry
+        speed, steer = plan_v(obs.poses_x[:, 0], obs.poses_y[:, 0], obs.poses_theta[:, 0], ppp)
+        state, obs, *_ = step_v(env_params, state, jnp.stack([steer, speed], -1)[:, None, :])
+        return (state, obs, crashed | (obs.collisions[:, 0] > 0)), None
+
+    poses = jnp.broadcast_to(jnp.asarray(start, jnp.float64).reshape(1, 3), (p_n, 1, 3))
+    state, obs, *_ = reset_v(env_params, poses, jax.random.split(jax.random.PRNGKey(0), p_n))
+    carry = (state, obs, obs.collisions[:, 0] > 0)
+    return jax.jit(lambda c: jax.lax.scan(body, c, None, length=steps)[0])(carry)
+
+
 def test_evaluator_matches_jax():
+    """Fitness within 1e-9 of JAX's evaluator, and, since 250 steps (2.5 s)
+    finish no lap and each fitness is the budget plus a penalty, the race
+    it is taken from too: the final state, scans, crash flags, toggles and
+    lap times against JAX's race (float64: 1e-9, flags and counts equal)."""
     torch.set_num_threads(2)
     yml, csv, start = _inputs()
-    jf = np.asarray(jps.make_laptime_evaluator(
-        JSimConfig(**CFG_KW), yml, jpp.load_waypoints_csv(csv, dtype=jnp.float64), 250,
-        start)({k: jnp.asarray(v) for k, v in POP.items()}))
-    tf = tps.make_laptime_evaluator(
+    jw = jpp.load_waypoints_csv(csv, dtype=jnp.float64)
+    jf = np.asarray(jps.make_laptime_evaluator(JSimConfig(**CFG_KW), yml, jw, 250, start)(
+        {k: jnp.asarray(v) for k, v in POP.items()}))
+    ev = tps.make_laptime_evaluator(
         TSimConfig(**CFG_KW), yml, tpp.load_waypoints_csv(csv, device="cpu"), 250, start,
-        device="cpu")({k: np.asarray(v) for k, v in POP.items()})
+        device="cpu")
+    tf = ev({k: np.asarray(v) for k, v in POP.items()})
     assert tf.shape == (4,) and tf.dtype == torch.float64
     # float64 bar: 1e-9
     np.testing.assert_allclose(tf.numpy(), jf, rtol=0, atol=1e-9)
     assert np.all(np.isfinite(jf)) and tf[3] >= tf.min()
+
+    ts, to, tc = ev.rollout({k: np.asarray(v) for k, v in POP.items()})
+    assert torch.equal(ev.fitness(ts, tc), tf)
+    js, jo, jc = _jax_rollout(JSimConfig(**CFG_KW), yml, jw, 250, start, POP)
+    np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(to.scans.numpy(), np.asarray(jo.scans), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(ts.lap_times.numpy(), np.asarray(js.lap_times), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_array_equal(ts.toggle_list.numpy(), np.asarray(js.toggle_list))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    # the four races end apart: the comparison is not of one repeated value
+    assert len({round(float(v), 6) for v in ts.x[:, 0, 0]}) == 4
 
 
 def test_search_matches_jax():
