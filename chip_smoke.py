@@ -245,6 +245,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2520,12 +2521,515 @@ def collect_lidar_phase(dev) -> dict:
     return counts
 
 
+# -- PR 15: the element-gather scan, data-parallel PPO, the last examples --
+
+TRACE_CPU_ENVS = 256      # envs of [trace_fast] scanned again on the CPU
+# bf16 e/w taps against a float32 render: p99 under half a cell and the
+# 4-cell share under FAR_FRAC_TOL (tests/test_scan_fast.py::
+# test_pallas_edge_epilogue_matches_xla)
+BF16_TAP_P99_CELLS = 0.5
+DIST_ITERS = 2            # train_ppo iterations of each [distributed] run
+DIST_RANK_ENVS = 8192     # envs a rank of the spawned [distributed] runs
+DIST_TIMEOUT = 600        # seconds a spawned rank may take
+# the float32 bar of P ranks against one process: the envs' steps are the
+# same per row, but the policy's products run on other row counts and the
+# losses are sums in another order
+DIST_LOSS_TOL = (1e-3, 1e-4)     # rtol, atol of each iteration's loss
+DIST_CHECKSUM_RTOL = 1e-5        # of sum |params| after each iteration
+SCAN_ERR_POSES = 64
+# rows of [scan_error], card against CPU: the statistics of kernel and twin
+# against one float64 oracle (which must be equal) may differ at the scan
+# bar, so by about a millimetre and a few beams in ten thousand
+SCAN_ERR_TOL = {"median": 0.002, "p90": 0.002, "p99": 0.02, "frac_gt_1cell": 0.002,
+                "frac_gt_4cell": 0.002}
+GEN_FLAGS = ["--iters", "2", "--envs", "4096", "--eval-envs-per-track", "128",
+             "--eval-steps", "200"]
+LIDAR_STEPS, LIDAR_EVERY = 400, 100
+
+
+def counting_resets():
+    """Wrap rollout.reset_done (as PPO.collect and make_rollout call it) to
+    count the calls in which this process restarted some env of its own:
+    -> the counter, a dict with "local"."""
+    from red_gym_tpu_torch import rollout
+
+    counter = {"local": 0}
+    inner = rollout.reset_done
+
+    def reset_done(cfg, params, state, obs, done, gen, *a, **k):
+        counter["local"] += bool(done.any())
+        return inner(cfg, params, state, obs, done, gen, *a, **k)
+
+    rollout.reset_done = reset_done
+    counter["undo"] = lambda: setattr(rollout, "reset_done", inner)
+    return counter
+
+
+def trace_fast_phase(cfg, params, leg_cfg, leg_params, dev) -> None:
+    """[trace_fast]: scan_fast.trace_fast (the element-gather scan, plain
+    PyTorch) at ENVS x AGENTS x BEAMS on random free poses against the
+    plain megakernel's clean scans (zero noise and speed) and kernel 6
+    (trace_fast_mxu without fused_ttc), both with float32 e/w taps (the
+    gather's arithmetic), and, on the legacy texture, kernel 7, at the
+    scan bar; the default megakernel (bf16 taps) against the gather at
+    JAX's bf16-tap bar; then the first TRACE_CPU_ENVS envs on the CPU."""
+    import torch
+
+    from red_gym_tpu_torch.ops import scan_fast, scan_kernels
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    poses = random_free_poses(params, ENVS * AGENTS, gen).reshape(ENVS, AGENTS, 3)
+    cell = float(params.rtex.cell)
+    f32 = dataclasses.replace(cfg, rt_ew_dtype="float32")
+
+    def mega_ops(c):
+        return scan_fast.mega_operands(poses, params.tables, params.tmap, params.rtex, c,
+                                       torch.zeros((ENVS, BEAMS), device=dev),
+                                       torch.zeros((ENVS, AGENTS), device=dev))
+
+    ops32, ops16 = mega_ops(f32), mega_ops(cfg)
+    if ops32["ew_dtype"] != torch.float32 or ops16["ew_dtype"] != torch.bfloat16:
+        fail(f"trace_fast: e/w taps {ops32['ew_dtype']}, {ops16['ew_dtype']}")
+    reset_launch_counts()
+    gather = scan_fast.trace_fast(poses, params.tables, params.tmap, params.rtex, cfg)
+    mega, _ = scan_kernels.mega_edge_ttc(**ops32)
+    k6 = scan_fast.trace_fast_mxu(poses, params.tables, params.tmap, params.rtex, f32)
+    leg_gather = scan_fast.trace_fast(poses, leg_params.tables, leg_params.tmap,
+                                      leg_params.rtex, leg_cfg)
+    k7 = scan_fast.trace_fast_mxu(poses, leg_params.tables, leg_params.tmap,
+                                  leg_params.rtex, leg_cfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name, n in (("mega_edge_ttc[plain]", 1), ("theta_shuffle_blend_edge", 1),
+                    ("theta_shuffle_blend", 1)):
+        if counts[name] != n:
+            fail(f"trace_fast: {name} launched {counts[name]} times, expected {n}")
+    flat = gather.reshape(-1, BEAMS)
+    errs = {
+        "megakernel (plain)": scan_bar("trace_fast: plain megakernel, float32 e/w taps, vs "
+                                       "element gather", mega, None, flat, None, cell),
+        "kernel 6": scan_bar("trace_fast: kernel 6, float32 e/w taps, vs element gather",
+                             k6.reshape(-1, BEAMS), None, flat, None, cell),
+        "kernel 7": scan_bar("trace_fast: kernel 7 (legacy texture) vs element gather",
+                             k7.reshape(-1, BEAMS), None, leg_gather.reshape(-1, BEAMS),
+                             None, float(leg_params.rtex.cell))}
+    # the default's bf16 e/w taps move the ramp by up to a bf16 ulp of e
+    # and w, which can flip a beam across a visibility edge: held to the
+    # gather at JAX's bf16-tap bar (BF16_TAP_P99_CELLS, FAR_FRAC_TOL)
+    mega16, _ = scan_kernels.mega_edge_ttc(**ops16)
+    err16 = (mega16 - flat).abs().flatten()
+    p99_16 = float(err16.sort().values[int(0.99 * (err16.numel() - 1))])
+    far16 = float((err16 > 4 * cell).float().mean())
+    if not torch.isfinite(mega16).all():
+        fail("trace_fast: the default megakernel's scan has non-finite values")
+    if p99_16 >= BF16_TAP_P99_CELLS * cell or far16 >= FAR_FRAC_TOL:
+        fail(f"trace_fast: the default megakernel (bf16 e/w taps) is p99 {p99_16} m, "
+             f"{far16} of beams past 4 cells from the element gather (bars "
+             f"{BF16_TAP_P99_CELLS * cell} m, {FAR_FRAC_TOL})")
+    gather_ms = median_ms(lambda: scan_fast.trace_fast(
+        poses, params.tables, params.tmap, params.rtex, cfg), 5)
+    mega_ms = median_ms(lambda: scan_kernels.mega_edge_ttc(**ops16), 5)
+    cp = to_cpu(params)
+    sub = poses[:TRACE_CPU_ENVS]
+    cpu = scan_fast.trace_fast(sub.cpu(), cp.tables, cp.tmap, cp.rtex, cfg)
+    scan_bar(f"trace_fast: card vs CPU, {TRACE_CPU_ENVS} envs", gather[:TRACE_CPU_ENVS]
+             .reshape(-1, BEAMS).cpu(), None, cpu.reshape(-1, BEAMS), None, cell)
+    say("trace_fast", f"{ENVS} x {AGENTS} x {BEAMS}: max |diff| against the element "
+        f"gather {errs}; the default megakernel (bf16 e/w taps) p99 {p99_16:.3e} m, max "
+        f"{float(err16.max()):.3e} m, {100 * far16:.4f}% beyond 4 cells; element gather "
+        f"{gather_ms:.3f} ms a call (median of 5, plain PyTorch), plain megakernel "
+        f"{mega_ms:.3f} ms")
+
+
+def rank_worker(out: str, envs: int, iters: int, save: str) -> None:
+    """One rank of a [distributed] run (``chip_smoke.py --rank-worker``,
+    spawned with torchrun's variables): train_ppo's default config at
+    ``envs`` global envs for ``iters`` iterations; writes to ``out`` its
+    losses, checksums, kernel 4's launches, its own reset steps, the
+    collectives' ms and the iterations' wall seconds."""
+    import torch
+
+    from red_gym_tpu_torch.examples import train_ppo
+    from red_gym_tpu_torch.ops import _build
+    from red_gym_tpu_torch.parallel import distributed as pdist, draws
+
+    _build.build_all()
+    pdist.initialize()
+    dev = pdist.local_device()
+    coll = {"ms": 0.0, "calls": 0}
+    for name in ("all_reduce_sum", "gather_counts"):
+        inner = getattr(draws, name)
+        coll[name] = [0.0, 0]
+
+        def timed_call(*a, _inner=inner, _name=name, **k):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r = _inner(*a, **k)
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            coll["ms"] += ms
+            coll["calls"] += 1
+            coll[_name][0] += ms
+            coll[_name][1] += 1
+            return r
+
+        setattr(draws, name, timed_call)
+    resets = counting_resets()
+    args = train_ppo.parse_args(["--envs", str(envs), "--iters", str(iters), "--save", save])
+    reset_launch_counts()
+    try:
+        pstate, hist = train_ppo.run(args, dev, True)
+        rec = {"rank": pdist.rank(), "world": pdist.world_size(),
+               "backend": torch.distributed.get_backend(), "device": str(dev),
+               "losses": [h["loss"] for h in hist], "wall_s": [h["wall_s"] for h in hist],
+               "checksum": float(sum(p.detach().double().abs().sum()
+                                     for p in pstate.policy.parameters())),
+               "k4": launch_counts()["theta_shuffle_blend_edge_ttc_opp"],
+               "local_resets": resets["local"], "collective_ms": coll["ms"],
+               "collective_calls": coll["calls"],
+               "by_collective": {k: coll[k] for k in ("all_reduce_sum", "gather_counts")},
+               "reset_steps": [h["reset_steps"] for h in hist]}
+    finally:
+        pdist.shutdown()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def spawn_ranks(n: int, envs: int, workdir: str) -> list:
+    """``n`` ranks of ``rank_worker`` on this host (cuda:LOCAL_RANK modulo
+    the cards) -> their records, in rank order.  Every rank is killed if
+    one fails or the timeout passes."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(workdir, f"rank{r}.json") for r in range(n)]
+    procs = []
+    try:
+        for r in range(n):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WORLD_SIZE=str(n), RANK=str(r), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(n))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker", outs[r],
+                 "--worker-envs", str(envs), "--worker-save",
+                 os.path.join(workdir, "ppo_shards")], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=DIST_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        tail = "\n".join(log.strip().splitlines()[-8:])
+        say("distributed", f"rank {r} exit {p.returncode}; last lines:\n{tail}")
+        if p.returncode != 0:
+            fail(f"distributed: rank {r} failed (exit {p.returncode})")
+    return [json.load(open(o)) for o in outs]
+
+
+def distributed_phase(dev, ranks: int, workdir: str) -> dict:
+    """[distributed]: (1) a group of one over NCCL on cuda:0: one
+    train_ppo-default iteration at ENVS envs through train_ppo.run's
+    distributed branch, torch.equal to the same iteration without a group;
+    (2) ``ranks`` spawned ranks (sharing cuda:0 over gloo on one card, a
+    card each over NCCL on several) at DIST_RANK_ENVS envs each, DIST_ITERS
+    iterations, against one process at the same global envs: loss and
+    checksum at the float32 bar, kernel 4 launched once for the reset and
+    collect steps + this rank's reset steps times on every rank, env-steps/s of the second
+    iteration and the collectives' ms an iteration."""
+    import torch
+
+    from red_gym_tpu_torch.examples import train_ppo
+    from red_gym_tpu_torch.parallel import distributed as pdist
+
+    os.makedirs(workdir, exist_ok=True)
+
+    def one(envs, iters, distributed):
+        # a group's ranks write a shard directory, one process a file
+        save = os.path.join(workdir, "ppo_world1" if distributed else "ppo_ckpt.pt")
+        args = train_ppo.parse_args(["--envs", str(envs), "--iters", str(iters),
+                                     "--save", save])
+        reset_launch_counts()
+        resets = counting_resets()
+        try:
+            pstate, hist = train_ppo.run(args, dev, distributed)
+        finally:
+            resets["undo"]()
+        return pstate, hist, launch_counts()["theta_shuffle_blend_edge_ttc_opp"], resets
+
+    rec = {}
+    if torch.cuda.device_count() >= 1:
+        pdist.initialize(device="cuda")
+        backend = torch.distributed.get_backend()
+        try:
+            pa, ha, _, _ = one(ENVS, 1, True)
+        finally:
+            pdist.shutdown()
+        pb, hb, _, _ = one(ENVS, 1, False)
+        same = all(torch.equal(a, b) for a, b in zip(pa.policy.parameters(),
+                                                     pb.policy.parameters()))
+        same &= all(ha[0][k] == hb[0][k] for k in ("loss", "reward_mean", "done_rate",
+                                                  "speed_mean", "reset_steps"))
+        say("distributed", f"world size 1 over {backend} on {dev}: one iteration at "
+            f"{ENVS} envs torch.equal to the ungrouped train_step: {same} (loss "
+            f"{ha[0]['loss']:.6f})")
+        if backend != "nccl" or not same:
+            fail(f"distributed: world size 1 ({backend}) differs from the ungrouped step")
+        rec["world1_backend"] = backend
+        del pa, pb
+
+    envs = DIST_RANK_ENVS * ranks
+    torch.cuda.synchronize()
+    ranks_rec = spawn_ranks(ranks, envs, workdir)
+    ref, href, k4_ref, res_ref = one(envs, DIST_ITERS, False)
+    ref_sum = float(sum(p.detach().double().abs().sum() for p in ref.policy.parameters()))
+    ref_loss = [h["loss"] for h in href]
+    steps = DIST_ITERS * train_ppo.parse_args([]).rollout
+    for r in ranks_rec:
+        dl = [abs(a - b) for a, b in zip(r["losses"], ref_loss)]
+        dc = abs(r["checksum"] - ref_sum) / ref_sum
+        say("distributed", f"rank {r['rank']} of {r['world']} ({r['backend']}, {r['device']}, "
+            f"{envs // ranks} envs): losses {r['losses']} against one process's {ref_loss} "
+            f"(|diff| {dl}); checksum {r['checksum']:.6f} against {ref_sum:.6f} "
+            f"(relative {dc:.2e}); kernel 4 launched {r['k4']} = the reset + {steps} steps + "
+            f"{r['local_resets']} own reset steps; collectives {r['collective_ms']:.1f} ms "
+            f"in {r['collective_calls']} calls, {r['collective_ms'] / DIST_ITERS:.1f} ms an "
+            f"iteration ([ms, calls] by function, the wait for the other ranks included: "
+            f"{r['by_collective']})")
+        rtol, atol = DIST_LOSS_TOL
+        if any(d > atol + rtol * abs(b) for d, b in zip(dl, ref_loss)):
+            fail(f"distributed: rank {r['rank']}'s losses differ from one process's")
+        if dc > DIST_CHECKSUM_RTOL:
+            fail(f"distributed: rank {r['rank']}'s parameters differ from one process's")
+        if r["k4"] != 1 + steps + r["local_resets"]:
+            fail(f"distributed: rank {r['rank']} launched kernel 4 {r['k4']} times, "
+                 f"expected {1 + steps + r['local_resets']}")
+        if r["losses"] != ranks_rec[0]["losses"] or r["checksum"] != ranks_rec[0]["checksum"]:
+            fail("distributed: the ranks report different losses or parameters")
+    if k4_ref != 1 + steps + res_ref["local"]:
+        fail(f"distributed: one process launched kernel 4 {k4_ref} times")
+    wall = max(r["wall_s"][-1] for r in ranks_rec)
+    rate, rate1 = envs * 32 / wall, envs * 32 / href[-1]["wall_s"]
+    say("distributed", f"{ranks} ranks x {envs // ranks} envs: the last iteration "
+        f"{wall:.3f} s, {rate:.0f} env-steps/s in all; one process at {envs} envs "
+        f"{href[-1]['wall_s']:.3f} s, {rate1:.0f} env-steps/s (same call)")
+    # the ranks' shards hold the env states and observations: report their
+    # size and remove them (a card's 16384 envs' scans alone are 141 MB)
+    shard_mb = {}
+    for name in ("ppo_world1", "ppo_shards"):
+        d = os.path.join(workdir, name)
+        shard_mb[name] = sum(os.path.getsize(os.path.join(r, f))
+                             for r, _, fs in os.walk(d) for f in fs) / 1e6
+        shutil.rmtree(d, ignore_errors=True)
+    say("distributed", f"sharded checkpoints, MB (removed): {shard_mb}")
+    rec.update(ranks=ranks, backend=ranks_rec[0]["backend"], env_steps_s=rate,
+               one_process_env_steps_s=rate1,
+               collective_ms_per_iter=[r["collective_ms"] / DIST_ITERS for r in ranks_rec],
+               k4=[r["k4"] for r in ranks_rec], shard_mb=shard_mb)
+    return rec
+
+
+def profile_components_phase(dev) -> dict:
+    """[profile_components]: examples/profile_components at ENVS envs, each
+    phase's ms; kernel 1a and prestep launched once a call of the fast full
+    step, kernel 6 once a call of the mxu scan (and once more for the
+    phases' scans), the march once a call of the exact phases."""
+    from red_gym_tpu_torch.examples import profile_components
+
+    reps, ereps = 20, 2
+    reset_launch_counts()
+    ms = profile_components.main([str(ENVS), "--reps", str(reps), "--exact-reps", str(ereps)])
+    # the texture's march is set-up (make_params), not a phase
+    counts = {k: v for k, v in launch_counts().items() if k != "march[rays]"}
+    say("profile_components", f"{ENVS} x {AGENTS} x {BEAMS}: ms a call {ms}; launches {counts}")
+    want = {"mega_edge_ttc[opp]": reps + 1, "prestep": reps + 1,
+            "theta_shuffle_blend_edge": reps + 2, "march[beams]": 2 * (ereps + 1)}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"profile_components: {name} launched {n} times, expected "
+                 f"{want.get(name, 0)}")
+    return counts
+
+
+def scan_error_phase(dev) -> dict:
+    """[scan_error]: examples/scan_error_study on track_wide at 64 poses,
+    its texture marched on the card; on the card the float64 oracle by the
+    march kernel's double instance and the fast scans by kernels 6 and 7,
+    the eager snap epilogue and the plain spectral product; then the same
+    poses and texture on the CPU: the oracle equal, every row within
+    SCAN_ERR_TOL."""
+    import numpy as np
+    import torch
+
+    from red_gym_tpu_torch import assets
+    from red_gym_tpu_torch.examples import scan_error_study as ses
+    from red_gym_tpu_torch.maps.loader import load_map
+    from red_gym_tpu_torch.ops.scan_fast import RangeTexture
+
+    torch.set_float32_matmul_precision("highest")
+    name = "track_wide"
+    tmap64 = load_map(assets.named_map_yaml(name), ".png", dtype=torch.float64,
+                      device="cpu")
+    poses = ses.sample_poses(tmap64, SCAN_ERR_POSES, np.random.default_rng(0))
+    full = ses.build_texture(name, 2, dev)
+    reset_launch_counts()
+    rows, exact = ses.study(poses, full, dev, name, 2, log=False)
+    counts = launch_counts()
+    for row in rows:
+        say("scan_error", json.dumps(row))
+    cpu_rows, cpu_exact = ses.study(poses, RangeTexture(*(t.cpu() for t in full)), "cpu",
+                                    name, 2, log=False)
+    d_oracle = float(np.abs(exact - cpu_exact).max())
+    worst = {}
+    for a, b in zip(rows, cpu_rows):
+        for k, tol in SCAN_ERR_TOL.items():
+            worst[k] = max(worst.get(k, 0.0), round(abs(a[k] - b[k]), 6))
+            if abs(a[k] - b[k]) > tol:
+                fail(f"scan_error: row {a} differs from the CPU's {b} in {k}")
+    say("scan_error", f"card against CPU: oracle max |diff| {d_oracle:.3e} m; the rows' "
+        f"largest |diff| {worst} (bars {SCAN_ERR_TOL}); launches {counts}")
+    if d_oracle != 0.0:
+        fail("scan_error: the card's float64 oracle differs from the CPU's")
+    want = {"march[beams]": 1, "theta_shuffle_blend_edge": 4, "theta_shuffle_blend": 4}
+    for k, n in counts.items():
+        if n != want.get(k, 0):
+            fail(f"scan_error: {k} launched {n} times, expected {want.get(k, 0)}")
+    return counts
+
+
+def generalization_phase(dev) -> dict:
+    """[generalization]: examples/generalization_study cut to GEN_FLAGS:
+    multi-map training on the 9 train tracks and the mean policy on all 11,
+    kernel 1a launched once a step and a reset step (no prestep under
+    map_idx), 11 finite rows."""
+    import math as m
+
+    from red_gym_tpu_torch.examples import generalization_study
+
+    reset_launch_counts()
+    resets = counting_resets()
+    t0 = time.perf_counter()
+    try:
+        rows = generalization_study.main(GEN_FLAGS)
+    finally:
+        resets["undo"]()
+    seconds = time.perf_counter() - t0
+    # the textures' marches are set-up (make_multimap_params), not the path
+    counts = {k: v for k, v in launch_counts().items() if k != "march[rays]"}
+    iters, rollout_len, eval_steps = 2, 32, 200
+    # the training reset, the collect steps and their reset steps, the
+    # evaluation's reset and steps
+    want = 1 + iters * rollout_len + resets["local"] + 1 + eval_steps
+    say("generalization", f"{' '.join(GEN_FLAGS)}: {seconds:.1f} s (two multi-map "
+        f"make_params included); {resets['local']} reset steps; launches {counts}")
+    check_counts("generalization", counts, ("mega_edge_ttc[opp]",), want)
+    if len(rows) != 11 or not all(m.isfinite(r[k]) for r in rows
+                                  for k in ("speed_mean", "crash_rate", "laps_mean")):
+        fail(f"generalization: rows {rows}")
+    return counts
+
+
+def mpc_demo_phase(dev) -> None:
+    """[mpc_demo]: examples/mpc_demo's built-in path on the card against
+    the same run on the CPU: controls within 1e-4, the tracking error."""
+    import numpy as np
+
+    from red_gym_tpu_torch.examples import mpc_demo
+
+    path, u_card, _, err = mpc_demo.main(["--device", "cuda"])
+    _, u_cpu, _, err_cpu = mpc_demo.main(["--device", "cpu"])
+    d = float(np.abs(u_card - u_cpu).max())
+    say("mpc_demo", f"{u_card.shape[0]} steps along {path.shape[0]} waypoints: max |du| card "
+        f"vs CPU {d:.2e}; tracking error {err:.4f} m (CPU {err_cpu:.4f} m)")
+    if not (d <= 1e-4 and np.isfinite(err)):
+        fail(f"mpc_demo: controls differ from the CPU's by {d}")
+
+
+def lidar_bitmap_phase(dev, workdir: str) -> dict:
+    """[lidar_bitmap]: examples/lidar_bitmap_example on the card, frames
+    every LIDAR_EVERY steps: the march once a step and the reset, the fill
+    once a FILL frame, the segment draw once a frame of each mode; every
+    PNG decodes (maps.loader.read_png) to its frame."""
+    import numpy as np
+
+    from red_gym_tpu_torch.examples import lidar_bitmap_example
+    from red_gym_tpu_torch.maps.loader import read_png
+
+    reset_launch_counts()
+    frames = lidar_bitmap_example.main(["--steps", str(LIDAR_STEPS), "--every",
+                                        str(LIDAR_EVERY), "--outdir", workdir])
+    counts = launch_counts()
+    n = len(frames)
+    for t, _, imgs in frames:
+        for mode, img in imgs.items():
+            png = read_png(os.path.join(workdir, f"{mode.lower()}_{t:05d}.png"))[0]
+            if not np.array_equal(png, img):
+                fail(f"lidar_bitmap: {mode} frame {t} does not decode to itself")
+    say("lidar_bitmap", f"{n} frames x 3 modes written and decoded; launches {counts}")
+    want = {"march[beams]": LIDAR_STEPS + 1, "fill_polygon": n, "draw_segments": 3 * n}
+    for k, c in counts.items():
+        if c != want.get(k, 0):
+            fail(f"lidar_bitmap: {k} launched {c} times, expected {want.get(k, 0)}")
+    return counts
+
+
+ONLY_PHASES = ("trace_fast", "distributed", "profile_components", "scan_error",
+               "generalization", "mpc_demo", "lidar_bitmap")
+
+
+def only_phases(names, dev, ranks: int, workdir: str, kind: str) -> None:
+    """``--only``: the named phases of PR 15 alone, then the last line."""
+    import torch
+
+    from red_gym_tpu_torch import assets, env
+    from red_gym_tpu_torch.config import SimConfig
+
+    bad = set(names) - set(ONLY_PHASES)
+    if bad:
+        fail(f"--only: unknown phases {sorted(bad)}; choose from {ONLY_PHASES}")
+    if "trace_fast" in names:
+        cfg = SimConfig(num_agents=AGENTS, num_beams=BEAMS, scan_mode="fast")
+        leg_cfg = dataclasses.replace(cfg, rt_spatial="bilinear", rt_occlusion="off",
+                                      rt_grad=False)
+        track = assets.named_map_yaml(TRACK)
+        trace_fast_phase(cfg, env.make_params(cfg, track, device=dev), leg_cfg,
+                         env.make_params(leg_cfg, track, device=dev), dev)
+    phases = {"distributed": lambda: distributed_phase(dev, ranks, workdir),
+              "profile_components": lambda: profile_components_phase(dev),
+              "scan_error": lambda: scan_error_phase(dev),
+              "generalization": lambda: generalization_phase(dev),
+              "mpc_demo": lambda: mpc_demo_phase(dev),
+              "lidar_bitmap": lambda: lidar_bitmap_phase(
+                  dev, os.path.join(workdir, "lidar_bitmaps"))}
+    for name in names:
+        if name in phases:
+            phases[name]()
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                              "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile 5 steps of the default, eager, bilinear, "
                          "ultra and exact paths")
+    ap.add_argument("--only", type=str, default=None,
+                    help="run only these comma-separated phases of PR 15 after the "
+                         f"build: {','.join(ONLY_PHASES)}")
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="ranks of [distributed]'s spawned run (2: sharing cuda:0 over "
+                         "gloo on one card; on as many cards: a card each over NCCL)")
+    ap.add_argument("--rank-worker", type=str, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--worker-envs", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--worker-save", type=str, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank_worker:
+        rank_worker(args.rank_worker, args.worker_envs, DIST_ITERS, args.worker_save)
+        return
     try:
         import torch
     except ImportError as e:
@@ -2560,6 +3064,11 @@ def main() -> None:
 
     # a cold texture build every run: its time is one of the reported numbers
     os.environ["RED_GYM_TPU_TEXTURE_CACHE"] = "off"
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                           "chip_smoke")
+    if args.only:
+        only_phases(args.only.split(","), dev, args.ranks, workdir, kind)
+        return
     cfg = SimConfig(num_agents=AGENTS, num_beams=BEAMS, scan_mode="fast")
     t0 = time.perf_counter()
     params = env.make_params(cfg, assets.named_map_yaml(TRACK), device=dev)
@@ -2699,6 +3208,16 @@ def main() -> None:
     del ppo_policy, ppo_obs, sac_tr
     collect_counts = collect_lidar_phase(dev)
 
+    # the rest of the package: the element-gather scan, data-parallel PPO,
+    # the last five examples
+    trace_fast_phase(cfg, params, leg_cfg, leg_params, dev)
+    dist_rec = distributed_phase(dev, args.ranks, workdir)
+    prof_counts = profile_components_phase(dev)
+    err_counts = scan_error_phase(dev)
+    gen_counts = generalization_phase(dev)
+    mpc_demo_phase(dev)
+    lidar_counts = lidar_bitmap_phase(dev, os.path.join(workdir, "lidar_bitmaps"))
+
     mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
                 "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}
     blend_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/theta_blend.cu"}
@@ -2766,6 +3285,21 @@ def main() -> None:
         "trackgen_launches"] = trackgen_counts["mega_edge_ttc[opp]"]
     next(r for r in records if r["name"] == "prestep")[
         "trackgen_launches"] = trackgen_counts["prestep"]
+    by_name = {r["name"]: r for r in records}
+    by_name["mega_edge_ttc+opp"].update(
+        profile_components_launches=prof_counts["mega_edge_ttc[opp]"],
+        generalization_launches=gen_counts["mega_edge_ttc[opp]"])
+    by_name["prestep"]["profile_components_launches"] = prof_counts["prestep"]
+    by_name["theta_shuffle_blend_edge_ttc_opp"]["distributed_launches"] = dist_rec["k4"]
+    by_name["theta_shuffle_blend_edge"].update(
+        profile_components_launches=prof_counts["theta_shuffle_blend_edge"],
+        scan_error_launches=err_counts["theta_shuffle_blend_edge"])
+    by_name["theta_shuffle_blend"]["scan_error_launches"] = err_counts["theta_shuffle_blend"]
+    by_name["march"].update(profile_components_launches=prof_counts["march[beams]"],
+                            scan_error_launches=err_counts["march[beams]"],
+                            lidar_bitmap_launches=lidar_counts["march[beams]"])
+    for name in ("fill_polygon", "draw_segments"):
+        by_name[name]["lidar_bitmap_launches"] = lidar_counts[name]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}),

@@ -1,11 +1,21 @@
-"""PPO actor-learner over batched envs on one device.
+"""PPO actor-learner over batched envs, on one device or data-parallel.
 
 PyTorch counterpart of ``red_gym_tpu/agents/ppo.py``.  The JAX package
 collects rollouts and learns in one jitted program sharded over an env
 mesh; here ``PPO.train_step`` is a Python loop over the env step, the
 policy forward and the minibatch updates, all on the envs' device (the
-card in training, the CPU in the tests).  There is no mesh: one card needs
-none.
+card in training, the CPU in the tests).
+
+Data-parallel.  Given a mesh of P ranks (``parallel.sharding.EnvMesh``),
+each rank steps its E/P rows of the E envs and the update computes what
+JAX's one global program computes: every rank draws the same permutation
+of all T*E samples, keeps the minibatch positions of its envs, normalises
+the advantages by the statistics of the whole minibatch (all-reduced),
+takes its loss terms as local sums over the global minibatch size, and
+SUM-reduces the gradients before ``opt.step()``, so that every rank's Adam
+takes the same step.  Every random draw of the rollout is made for all E
+envs and sliced (``parallel.draws``).  With one rank, ``train_step`` is
+the one-device code.
 
 The policy consumes the lidar scan directly (log-scaled, strided) rather
 than a rasterized bitmap.  Rollouts store the compact features
@@ -34,6 +44,7 @@ from red_gym_tpu_torch import rollout
 from red_gym_tpu_torch.agents import pure_pursuit as pp
 from red_gym_tpu_torch.config import SimConfig
 from red_gym_tpu_torch.env import EnvParams, Observation, step
+from red_gym_tpu_torch.parallel import draws, sharding
 
 # flax's lecun_normal: a normal of std 1/sqrt(fan_in) truncated to +-2 of its
 # own std, rescaled by the std of a standard normal truncated to [-2, 2] so
@@ -207,7 +218,10 @@ class PPO:
     straight), pure_pursuit_opponents(...) (raceline-tracking traffic),
     pure_pursuit_opponents_multi(...) (per-track racelines on map-stacked
     envs), or the string "self" (self-play: the current policy's mean
-    action drives opponents).
+    action drives opponents).  ``mesh`` (``parallel.sharding.EnvMesh``) of
+    several ranks: the env states and params given are this rank's rows
+    (``shard_envs``, ``shard_params``), and ``train_step`` is the
+    data-parallel step of the module docstring.
 
     Random streams.  JAX splits a key per step for the actions and the
     resets, and its ``collect`` steps every env once more from its start
@@ -223,7 +237,8 @@ class PPO:
 
     def __init__(self, cfg: SimConfig, env_params: EnvParams,
                  pcfg: PPOConfig = PPOConfig(), policy: nn.Module | None = None,
-                 opponent_plan=None, map_axis=None, reward_fn=None):
+                 opponent_plan=None, map_axis=None, reward_fn=None,
+                 mesh: sharding.EnvMesh | None = None):
         self.cfg = cfg
         self.env_params = env_params
         self.pcfg = pcfg
@@ -249,6 +264,8 @@ class PPO:
         self.reward_fn = reward_fn or progress_collision_reward()
         self._feat_stride = getattr(self.policy, "scan_stride", None)
         self.device = env_params.tables.beam_cosines.device
+        # the ranks the envs are sharded over; None or one rank: this process
+        self.mesh = mesh if mesh is not None and mesh.world_size > 1 else None
 
     def _featurize(self, scans):
         if self._feat_stride is None:
@@ -278,8 +295,9 @@ class PPO:
         ego = self.cfg.ego_idx
         feat = self._featurize(obs.scans[:, ego])
         mean, log_std, value = self._apply(policy, feat, obs.linear_vels_x[:, ego])
-        noise = torch.randn(mean.shape, generator=gen, dtype=mean.dtype,
-                            device=mean.device)
+        noise = draws.draw_rows(mean.shape[0], lambda n: torch.randn(
+            (n,) + tuple(mean.shape[1:]), generator=gen, dtype=mean.dtype,
+            device=mean.device))
         act = mean + torch.exp(log_std) * noise
         return act, gaussian_logp(mean, log_std, act), value, feat
 
@@ -311,28 +329,30 @@ class PPO:
     def collect(self, pstate: PPOState, env_states, obs, env_params=None):
         """Roll the env batch pcfg.rollout_len steps, restarting done envs
         (``rollout.reset_done``) -> (env_states, obs, Trajectory).  Rewards
-        are computed before the restart, as in JAX."""
+        are computed before the restart, as in JAX.  On a mesh, every draw
+        is made for all ranks' envs (``sharding.env_draws``)."""
         cfg, ego = self.cfg, self.cfg.ego_idx
         params = env_params if env_params is not None else self.env_params
         maps = rollout._env_maps(params, self.map_axis, env_states.x.shape[0],
                                  env_states.x.device)
         policy, gen = pstate.policy, pstate.gen
         steps = []
-        for _ in range(self.pcfg.rollout_len):
-            with record_function("ppo/policy"):
-                act, logp, value, feat = self._policy_step(policy, obs, gen)
-            ctrl = self._env_actions(act, obs, policy, map_idx=env_states.map_idx)
-            with record_function("ppo/env_step"):
-                s = env_states if maps is None else env_states._replace(map_idx=maps)
-                s2, obs2, _, done, _ = step(cfg, params, s, ctrl, gen)
-            r = self.reward_fn(cfg, obs, obs2)
-            with record_function("ppo/reset"):
-                s2, obs2, _ = rollout.reset_done(cfg, params, s2, obs2, done, gen)
-            if maps is not None:
-                s2 = s2._replace(map_idx=None)
-            steps.append((feat, obs.linear_vels_x[:, ego], act, logp, value,
-                          r.to(torch.float32), done.to(torch.float32)))
-            env_states, obs = s2, obs2
+        with sharding.env_draws(self.mesh, env_states.x.shape[0]):
+            for _ in range(self.pcfg.rollout_len):
+                with record_function("ppo/policy"):
+                    act, logp, value, feat = self._policy_step(policy, obs, gen)
+                ctrl = self._env_actions(act, obs, policy, map_idx=env_states.map_idx)
+                with record_function("ppo/env_step"):
+                    s = env_states if maps is None else env_states._replace(map_idx=maps)
+                    s2, obs2, _, done, _ = step(cfg, params, s, ctrl, gen)
+                r = self.reward_fn(cfg, obs, obs2)
+                with record_function("ppo/reset"):
+                    s2, obs2, _ = rollout.reset_done(cfg, params, s2, obs2, done, gen)
+                if maps is not None:
+                    s2 = s2._replace(map_idx=None)
+                steps.append((feat, obs.linear_vels_x[:, ego], act, logp, value,
+                              r.to(torch.float32), done.to(torch.float32)))
+                env_states, obs = s2, obs2
         return env_states, obs, Trajectory(*(torch.stack(f) for f in zip(*steps)))
 
     # -- learning -------------------------------------------------------------
@@ -348,30 +368,67 @@ class PPO:
         adv = torch.stack(adv[::-1])
         return adv, adv + values
 
-    def _loss(self, policy, batch):
+    def _allsum(self, t):
+        """The SUM of ``t`` over the mesh's ranks; ``t`` itself without a mesh."""
+        return t if self.mesh is None else draws.all_reduce_sum(t, self.mesh.group)
+
+    def _loss(self, policy, batch, mb: int | None = None):
+        """The PPO loss of a minibatch of ``mb`` samples (default: all of
+        ``batch``) -> (loss, {"pg", "vf", "ratio"}).  The advantages are
+        normalised by the minibatch's mean and population std (JAX's
+        ``adv.std()``), each term is a sum over ``mb``.  On a mesh ``batch``
+        holds this rank's samples of the minibatch: the statistics are
+        all-reduced and the entropy term, every rank's, is taken a P-th, so
+        the ranks' losses and gradients sum to one process's."""
         feats, vels, acts, logp_old, adv, returns = batch
+        mb = adv.shape[0] if mb is None else mb
+        world = 1 if self.mesh is None else self.mesh.world_size
+        adv_mean = self._allsum(adv.sum()) / mb
+        adv_std = torch.sqrt(self._allsum(((adv - adv_mean) ** 2).sum()) / mb)
+        adv_n = (adv - adv_mean) / (adv_std + 1e-8)
         p = self.pcfg
         mean, log_std, value = self._apply(policy, feats, vels)
-        logp = gaussian_logp(mean, log_std, acts)
-        ratio = torch.exp(logp - logp_old)
-        # JAX's adv.std() is the population std
-        adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        ratio = torch.exp(gaussian_logp(mean, log_std, acts) - logp_old)
         pg = -torch.minimum(ratio * adv_n,
                             torch.clamp(ratio, 1 - p.clip_eps, 1 + p.clip_eps) * adv_n)
-        vf = 0.5 * (value - returns) ** 2
+        pg = pg.sum() / mb
+        vf = (0.5 * (value - returns) ** 2).sum() / mb
         ent = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
-        loss = pg.mean() + p.vf_coef * vf.mean() - p.ent_coef * ent
-        return loss, {"pg": pg.mean(), "vf": vf.mean(), "ratio": ratio.mean()}
+        loss = pg + p.vf_coef * vf - p.ent_coef * ent / world
+        return loss, {"pg": pg, "vf": vf, "ratio": ratio.sum() / mb}
+
+    def _reduce_grads(self, policy, loss):
+        """SUM the ranks' gradients and their ``loss`` in one all-reduce ->
+        the global loss; the gradients are replaced in place.  Without a
+        mesh: ``loss``."""
+        if self.mesh is None:
+            return loss.detach()
+        params = [q for q in policy.parameters() if q.requires_grad]
+        grads = [q.grad if q.grad is not None else torch.zeros_like(q) for q in params]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+        flat = self._allsum(flat)
+        off = 0
+        for q, g in zip(params, grads):
+            q.grad = flat[off:off + g.numel()].view_as(q).clone()
+            off += g.numel()
+        return flat[-1]
 
     def _update(self, pstate: PPOState, traj: Trajectory, last_value, _perms=None):
         """GAE, then pcfg.epochs epochs of pcfg.minibatches Adam steps on
-        minibatches of a fresh permutation each (``_perms[epoch]`` in place
-        of the draw, for the tests) -> the mean minibatch loss."""
+        minibatches of a fresh permutation of all T*E samples each
+        (``_perms[epoch]`` in place of the draw, for the tests) -> the mean
+        minibatch loss.  On a mesh the permutation is over every rank's
+        samples (the generator is replicated) and each rank keeps those of
+        its rows [lo, lo + e): global sample g is env g % (e P) of step
+        g // (e P)."""
         adv, returns = self._gae(traj.values, traj.rewards, traj.dones, last_value)
         t, e = traj.rewards.shape
         data = [x.reshape((t * e,) + x.shape[2:]) for x in
                 (traj.feats, traj.vels, traj.acts, traj.logps, adv, returns)]
-        n = t * e
+        world, lo = (1, 0) if self.mesh is None else (self.mesh.world_size,
+                                                      e * self.mesh.rank)
+        e_all = e * world
+        n = t * e_all
         mb = n // self.pcfg.minibatches
         policy, opt = pstate.policy, pstate.optimizer
         losses = []
@@ -380,11 +437,15 @@ class PPO:
                     if _perms is None else _perms[ep])
             for i in range(self.pcfg.minibatches):
                 idx = perm[i * mb:(i + 1) * mb]
-                loss, _ = self._loss(policy, [x[idx] for x in data])
+                if world > 1:
+                    env = idx % e_all
+                    idx = idx[(env >= lo) & (env < lo + e)]
+                    idx = (idx // e_all) * e + (idx % e_all - lo)
+                loss, _ = self._loss(policy, [x[idx] for x in data], mb)
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
+                losses.append(self._reduce_grads(policy, loss))
                 opt.step()
-                losses.append(loss.detach())
         return torch.stack(losses).mean()
 
     def train_step(self, pstate: PPOState, env_states, obs, env_params=None):
@@ -392,7 +453,9 @@ class PPO:
         policy and optimizer of ``pstate`` in place -> (pstate, env_states,
         obs, metrics): JAX's four metrics (loss, reward_mean, done_rate,
         speed_mean) and reset_steps (steps that restarted some env), all
-        tensors on the device; nothing here waits for the device."""
+        tensors on the device; nothing here waits for the device.  On a
+        mesh, the metrics are those of every rank's envs; the collectives
+        of the update and of the resets wait for the other ranks."""
         env_states, obs, traj = self.collect(pstate, env_states, obs, env_params)
         ego = self.cfg.ego_idx
         with torch.no_grad():
@@ -401,7 +464,18 @@ class PPO:
                                            obs.linear_vels_x[:, ego])
         with record_function("ppo/update"):
             loss = self._update(pstate, traj, last_value)
-        metrics = {"loss": loss, "reward_mean": traj.rewards.mean(),
-                   "done_rate": traj.dones.mean(), "speed_mean": traj.vels.mean(),
-                   "reset_steps": (traj.dones.sum(1) > 0).sum()}
+        # the metrics of every rank's envs: their sums and each step's done
+        # count, in one all-reduce on a mesh
+        t, e = traj.rewards.shape
+        f64 = torch.float64
+        sums = self._allsum(torch.cat([
+            torch.stack([traj.rewards.sum(dtype=f64), traj.dones.sum(dtype=f64),
+                         traj.vels.sum(dtype=f64)]),
+            traj.dones.sum(1, dtype=f64)]))
+        n = t * e * (1 if self.mesh is None else self.mesh.world_size)
+        metrics = {"loss": loss,
+                   "reward_mean": (sums[0] / n).to(traj.rewards.dtype),
+                   "done_rate": (sums[1] / n).to(traj.dones.dtype),
+                   "speed_mean": (sums[2] / n).to(traj.vels.dtype),
+                   "reset_steps": (sums[3:] > 0).sum()}
         return pstate, env_states, obs, metrics

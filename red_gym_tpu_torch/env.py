@@ -55,7 +55,8 @@ from red_gym_tpu_torch.config import (Integrator, SimConfig, VehicleParams,
                                       resolve_device)
 from red_gym_tpu_torch.maps.loader import TrackMap, load_map, pad_map, stack_maps
 from red_gym_tpu_torch.ops import agent_scan, collision as col
-from red_gym_tpu_torch.ops import scan as scan_ops, scan_fast, state_kernels
+from red_gym_tpu_torch.ops import scan as scan_ops, scan_fast, scan_kernels, state_kernels
+from red_gym_tpu_torch.parallel import draws
 
 _NOISE_POOL_SEED = 0x5EED
 
@@ -266,7 +267,10 @@ def _noise_rows(cfg: SimConfig, params: EnvParams, e_n: int, gen):
     on the device, env g reading pool row (g + (pool_off & ~15)) % rows
     (scan_kernels.pool_rot_rows), the counterpart of the JAX package's
     env-0 draw; without the megakernel, "pool_rot" picks one pool row per
-    env as "pool" does, as the JAX package does."""
+    env as "pool" does, as the JAX package does.  Inside
+    ``parallel.draws.row_draws`` every draw is made for all ranks' envs and
+    this rank keeps its rows; "pool_rot" then hands the megakernel its
+    rows of the pool as a slab (the plain variant)."""
     device = params.tables.beam_cosines.device
     if cfg.scan_noise_std <= 0:
         return torch.zeros((e_n, cfg.num_beams), dtype=cfg.tdtype,
@@ -274,13 +278,24 @@ def _noise_rows(cfg: SimConfig, params: EnvParams, e_n: int, gen):
     if cfg.noise_mode == "pool_rot" and scan_fast.use_megakernel(cfg):
         off = torch.randint(0, cfg.noise_pool_rows, (1,), generator=gen,
                             device=device, dtype=torch.int32)
-        return params.noise_pool, off
+        if draws.current() is None:
+            return params.noise_pool, off
+        # a rank's rows of the rotation counted over every rank's envs: the
+        # pool rows themselves, for the plain variant
+        return draws.draw_rows(e_n, lambda n: params.noise_pool[
+            scan_kernels.pool_rot_rows(n, cfg.noise_pool_rows, off)]), None
     if cfg.noise_mode in ("pool", "pool_rot"):
-        r = torch.randint(0, cfg.noise_pool_rows, (e_n,), generator=gen,
-                          device=device)
+        r = draws.draw_rows(e_n, lambda n: torch.randint(
+            0, cfg.noise_pool_rows, (n,), generator=gen, device=device))
         return params.noise_pool[r], None
-    return cfg.scan_noise_std * torch.randn(
-        (e_n, cfg.num_beams), generator=gen, dtype=cfg.tdtype, device=device), None
+    return draws.draw_rows(e_n, lambda n: cfg.scan_noise_std * torch.randn(
+        (n, cfg.num_beams), generator=gen, dtype=cfg.tdtype, device=device)), None
+
+
+def skip_step_draws(cfg: SimConfig, params: EnvParams, gen) -> None:
+    """Advance ``gen`` past the draws of a step of no env of this process:
+    inside ``parallel.draws.row_draws``, a step of other ranks' envs only."""
+    _noise_rows(cfg, params, 0, gen)
 
 
 def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):

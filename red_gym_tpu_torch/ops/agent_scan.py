@@ -35,6 +35,33 @@ def _wrap_pi(a):
     return torch.where(a < -math.pi, a + 2 * math.pi, a)
 
 
+def get_range(pose, beam_theta, va, vb):
+    """Distance from ``pose`` along the world angle ``beam_theta`` to the
+    segment va->vb, inf where the beam misses it (reference get_range,
+    laser_models.py:250-280), with the collinear fallback: a beam along
+    the segment's line reads the nearer endpoint.  All arguments
+    broadcast; pose (..., >=2), va and vb (..., 2)."""
+    o = pose[..., 0:2]
+    v1 = o - va
+    v2 = vb - va
+    v3 = torch.stack([torch.cos(beam_theta + math.pi / 2.0),
+                      torch.sin(beam_theta + math.pi / 2.0)], dim=-1)
+    denom = torch.sum(v2 * v3, dim=-1)
+    d1 = (v2[..., 0] * v1[..., 1] - v2[..., 1] * v1[..., 0]) / denom
+    d2 = torch.sum(v1 * v3, dim=-1) / denom
+    valid = (torch.abs(denom) > 0.0) & (d1 >= 0.0) & (d2 >= 0.0) & (d2 <= 1.0)
+
+    # collinear fallback (only reachable when denom == 0)
+    ba = vb - va
+    ca = va - o
+    cross = ba[..., 0] * ca[..., 1] - ba[..., 1] * ca[..., 0]
+    collinear = (torch.abs(denom) <= 0.0) & (torch.abs(cross) < 1e-8)
+    d_col = torch.minimum(torch.linalg.norm(va - o, dim=-1),
+                          torch.linalg.norm(vb - o, dim=-1))
+    inf = torch.full_like(d1, math.inf)
+    return torch.where(valid, d1, torch.where(collinear, d_col, inf))
+
+
 def blocked_view_window(pose, vertices, tables: ScanTables):
     """(lo, hi) int32 beam window blocked by an opponent body (reference
     get_blocked_view_indices, laser_models.py:283-315): the four
@@ -50,6 +77,15 @@ def blocked_view_window(pose, vertices, tables: ScanTables):
     inds = torch.clamp(torch.round((bearings - a0) / incr), 0, n_b - 1)
     inds = inds.to(torch.int32)
     return inds.amin(dim=-1), inds.amax(dim=-1)
+
+
+def blocked_view_mask(pose, vertices, tables: ScanTables):
+    """Beams [lo, hi] blocked by an opponent body, as a mask (the boolean
+    form of ``blocked_view_window``).  pose (..., 3), vertices (..., 4, 2)
+    -> bool (..., B)."""
+    lo, hi = blocked_view_window(pose, vertices, tables)
+    beam_idx = torch.arange(tables.scan_angles.shape[0], device=lo.device)
+    return (beam_idx >= lo[..., None]) & (beam_idx <= hi[..., None])
 
 
 def opponent_slab_scalars(poses, all_vertices, tables: ScanTables):

@@ -44,6 +44,14 @@ def constrain_inputs_t(steer, vel, sv0, ac0, p: VehicleParams):
     return sv, ac
 
 
+def constrain_inputs(x, u_init, p: VehicleParams):
+    """Both input constraints on the stacked state (..., 7) and controls
+    (..., 2) -> the constrained controls (..., 2)."""
+    sv, ac = constrain_inputs_t(x[..., 2], x[..., 3], u_init[..., 0],
+                                u_init[..., 1], p)
+    return torch.stack([sv, ac], dim=-1)
+
+
 def vehicle_dynamics_ks_t(xt, sv0, ac0, p: VehicleParams):
     """Kinematic single-track RHS on a 5-tuple of state components
     (reference dynamic_models.py:91-121)."""
@@ -54,6 +62,13 @@ def vehicle_dynamics_ks_t(xt, sv0, ac0, p: VehicleParams):
             sv,
             ac,
             xt[3] / lwb * torch.tan(xt[2]))
+
+
+def vehicle_dynamics_ks(x, u_init, p: VehicleParams):
+    """Kinematic single-track RHS on the stacked state (..., 5)."""
+    xt = tuple(x[..., i] for i in range(5))
+    return torch.stack(vehicle_dynamics_ks_t(xt, u_init[..., 0], u_init[..., 1], p),
+                       dim=-1)
 
 
 def vehicle_dynamics_st_t(xt, sv0, ac0, p: VehicleParams):
@@ -93,6 +108,14 @@ def vehicle_dynamics_st_t(xt, sv0, ac0, p: VehicleParams):
     )
     f_ks7 = f_ks5 + (f_ks_6, torch.zeros_like(f_ks_6))
     return tuple(torch.where(use_ks, a, b) for a, b in zip(f_ks7, f_st))
+
+
+def vehicle_dynamics_st(x, u_init, p: VehicleParams):
+    """Dynamic single-track RHS on the stacked state (..., 7); the env step
+    uses the component form ``vehicle_dynamics_st_t``."""
+    xt = tuple(x[..., i] for i in range(7))
+    return torch.stack(vehicle_dynamics_st_t(xt, u_init[..., 0], u_init[..., 1], p),
+                       dim=-1)
 
 
 def pid(speed, steer, current_speed, current_steer, max_sv, max_a, max_v, min_v):

@@ -1,8 +1,11 @@
-"""Fixed-step time integrators for the vehicle ODE on state-component tuples.
+"""Fixed-step time integrators for the vehicle ODE.
 
 PyTorch counterpart of ``red_gym_tpu/ops/integrate.py`` (reference:
 base_classes.py:282-402), with the reference's stage arithmetic and
-floating-point ordering.
+floating-point ordering.  The ``_t`` forms step tuples of state components
+(the env step's form); ``rk4_step``, ``euler_step`` and ``integrate`` step
+a stacked state (..., n) under ``rhs(x, u, p)`` and are thin wrappers over
+them.
 """
 
 from __future__ import annotations
@@ -42,6 +45,37 @@ def integrate_t(integrator: Integrator, rhs_t: Callable, xt, sv, ac, dt, p):
         return rk4_step_t(rhs_t, xt, sv, ac, dt, p)
     if integrator is Integrator.EULER:
         return euler_step_t(rhs_t, xt, sv, ac, dt, p)
+    raise ValueError(f"unknown integrator {integrator}")
+
+
+def _stacked(rhs: Callable):
+    """rhs(x, u, p) on stacked arrays as a component-tuple RHS."""
+    def rhs_t(xt, sv, ac, p):
+        f = rhs(torch.stack(xt, dim=-1), torch.stack([sv, ac], dim=-1), p)
+        return tuple(f.unbind(-1))
+    return rhs_t
+
+
+def _tuple_step(step_t: Callable, rhs: Callable, x, u, dt, p):
+    xt = step_t(_stacked(rhs), tuple(x.unbind(-1)), u[..., 0], u[..., 1], dt, p)
+    return torch.stack(xt, dim=-1)
+
+
+def rk4_step(rhs: Callable, x, u, dt, p):
+    """RK4 on the stacked state (..., n) with controls (..., 2)."""
+    return _tuple_step(rk4_step_t, rhs, x, u, dt, p)
+
+
+def euler_step(rhs: Callable, x, u, dt, p):
+    """Explicit Euler on the stacked state (..., n)."""
+    return _tuple_step(euler_step_t, rhs, x, u, dt, p)
+
+
+def integrate(integrator: Integrator, rhs: Callable, x, u, dt, p):
+    if integrator is Integrator.RK4:
+        return rk4_step(rhs, x, u, dt, p)
+    if integrator is Integrator.EULER:
+        return euler_step(rhs, x, u, dt, p)
     raise ValueError(f"unknown integrator {integrator}")
 
 

@@ -822,6 +822,125 @@ def xla_tail(sp: Spectra, rtex: RangeTexture, cfg: SimConfig, midx=None):
     return torch.clamp(out, 0.0, cfg.max_range)
 
 
+def trace_fast(pose, tables, tmap: TrackMap, rtex: RangeTexture, cfg: SimConfig,
+               midx=None):
+    """The element-gather fast scan (JAX scan_fast.trace_fast): poses
+    (..., 3) -> clean scans (..., B), on any device, in plain PyTorch.
+
+    The readable definition ``trace_fast_mxu`` and the scan kernels are
+    held to: the texture cells of each pose, weighted by validity (one-hot
+    on the heaviest cell under ``rt_spatial="nearest"``), each channel
+    gathered at the two theta bins i0, i1 around every beam, the gradient
+    fold ``R + dx gx + dy gy``, the corner-bearing parallax of the edge
+    position at bin i0, the spatial blend with the per-bin occlusion snap,
+    then the render of ``rt_eff_occlusion``: the lerp ("off"), the snap to
+    the nearer bin across a jump ("snap") or the (e, w) ramp ("edge"), the
+    empty-cell mask and the clip to [0, max_range].  ``midx`` (int32,
+    broadcast to pose's batch) reads each pose's map of a stacked texture.
+    It gathers (..., K, B) values a channel, so it is for checks, not the
+    step."""
+    t_bins, n_chan = cfg.rt_theta_bins, cfg.rt_channels
+    eff_occ = cfg.rt_eff_occlusion
+    two_pi = 2.0 * math.pi
+    dtype = rtex.fmat.dtype
+    if rtex.rt.shape[-1] != n_chan * t_bins:
+        raise ValueError(f"texture carries {rtex.rt.shape[-1] // t_bins} channels but "
+                         f"the config expects {n_chan}: rebuild the range texture")
+    if midx is not None:
+        midx = torch.broadcast_to(torch.as_tensor(midx, device=pose.device),
+                                  pose.shape[:-1])
+    _check_midx(rtex, midx)
+    rows, wgt, dx, dy = _cells_and_theta(pose, tables, tmap, rtex, cfg, midx)
+    rows = rows.long()
+    phi = pose[..., 2:3] + tables.scan_angles                       # (..., B)
+    u = torch.remainder(phi, two_pi) * (t_bins / two_pi)
+    wgt = wgt * rtex.valid.reshape(-1)[rows].to(dtype)
+    k_cells = wgt.shape[-1]
+    if cfg.rt_spatial == "nearest":
+        hot = torch.nn.functional.one_hot(torch.argmax(wgt, dim=-1), k_cells)
+        wgt = hot.to(dtype) * (wgt.amax(dim=-1, keepdim=True) > 0).to(dtype)
+    wsum = wgt.sum(dim=-1, keepdim=True)
+    wnorm = wgt / torch.clamp(wsum, min=1e-12)
+
+    fu = torch.floor(u)
+    i0 = torch.remainder(fu.to(torch.int64), t_bins)
+    i1 = torch.remainder(i0 + 1, t_bins)
+    a = (u - fu).to(dtype)
+
+    rt_flat = _flat_rt(rtex).reshape(-1)
+    row_w = n_chan * t_bins
+
+    def gath(chan, ibin):
+        """Channel ``chan`` at theta bin ``ibin`` of every cell: (..., K, B)."""
+        flat = rows[..., :, None] * row_w + chan * t_bins + ibin[..., None, :]
+        return rt_flat[flat].to(dtype)
+
+    r0, r1 = gath(0, i0), gath(0, i1)
+    chan = 1
+    if eff_occ == "edge":
+        e0, w0 = gath(chan, i0), gath(chan + 1, i0)
+        chan += 2
+    if cfg.rt_grad:
+        r0 = torch.clamp(r0 + dx[..., None] * gath(chan, i0)
+                         + dy[..., None] * gath(chan + 1, i0), 0.0, cfg.max_range)
+        r1 = torch.clamp(r1 + dx[..., None] * gath(chan, i1)
+                         + dy[..., None] * gath(chan + 1, i1), 0.0, cfg.max_range)
+    if eff_occ == "edge":
+        # the exact corner-bearing parallax at bin i0, the active pair's left
+        dth = two_pi / t_bins
+        theta_e = (i0[..., None, :].to(dtype) + e0) * dth
+        r_fore = torch.clamp(torch.minimum(gath(0, i0), gath(0, i1)), min=0.05)
+        ex = r_fore * torch.cos(theta_e) - dx[..., None]
+        ey = r_fore * torch.sin(theta_e) - dy[..., None]
+        dbeta = torch.atan2(ey, ex) - theta_e
+        dbeta = dbeta - torch.round(dbeta / two_pi) * two_pi
+        e0 = e0 + (1.0 - w0) * dbeta / dth
+
+    def blend(v):
+        return torch.sum(v * wnorm[..., :, None], dim=-2)           # (..., B)
+
+    v0b, v1b = blend(r0), blend(r1)
+    if eff_occ == "edge":
+        e0b, w0b = blend(e0), blend(w0)
+    if eff_occ != "off" and k_cells > 1:
+        # per-bin spatial occlusion snap: where the valid cells disagree by
+        # more than the threshold, the heaviest cell's value
+        thr = cfg.rt_occlusion_cells * _cell_size(rtex, dtype, midx)
+        ok = wgt[..., None] > 0
+        best = torch.argmax(wgt, dim=-1)[..., None, None]
+
+        def top(v):
+            return torch.take_along_dim(
+                v, best.expand(best.shape[:-1] + v.shape[-1:]), dim=-2)[..., 0, :]
+
+        def snap_blend(v, vb):
+            spread = (torch.where(ok, v, torch.full_like(v, -1e9)).amax(dim=-2)
+                      - torch.where(ok, v, torch.full_like(v, 1e9)).amin(dim=-2))
+            return torch.where(spread > thr, top(v), vb), spread > thr
+
+        v0b, s0 = snap_blend(r0, v0b)
+        v1b, _ = snap_blend(r1, v1b)
+        if eff_occ == "edge":
+            e0b = torch.where(s0, top(e0), e0b)
+            w0b = torch.where(s0, top(w0), w0b)
+
+    if eff_occ == "off":
+        out = v0b * (1 - a) + v1b * a
+    elif eff_occ == "snap":
+        thr = cfg.rt_occlusion_cells * _cell_size(rtex, dtype, midx)
+        lerp = v0b + a * (v1b - v0b)
+        out = torch.where(torch.abs(v1b - v0b) > thr,
+                          torch.where(a < 0.5, v0b, v1b), lerp)
+    else:
+        e_sel = torch.clamp(e0b, 0.0, 1.0)
+        w_sel = torch.clamp(w0b, 1.0 / 32.0, 1.0)
+        aa = torch.clamp((a - (e_sel - 0.5 * w_sel)) / w_sel, 0.0, 1.0)
+        out = v0b + aa * (v1b - v0b)
+    # outside the texture or inside a wall: 0 (collided anyway)
+    out = torch.where(wsum > 0, out, torch.zeros_like(out))
+    return torch.clamp(out, 0.0, cfg.max_range)
+
+
 def _check_fp32_matmul(device, dtype) -> None:
     """The unfused branch's float32 matrix products must not run in TF32."""
     if dtype == torch.float32 and torch.device(device).type == "cuda" and (

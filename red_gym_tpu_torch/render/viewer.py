@@ -12,6 +12,7 @@ Viewer is made, never at module import.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -240,4 +241,75 @@ def plot_trajectory(tmap, xs, ys, path: str, title: str, dpi: int = 120) -> None
     plt.plot(_np(xs), _np(ys), "r-", lw=1)
     plt.title(title)
     fig.savefig(path, dpi=dpi)
+    plt.close(fig)
+
+
+def draw_track():
+    """Click points on a 40 x 40 canvas, Enter to finish (reference
+    src/MPC/MPC.py:17-33; ``examples/mpc_demo.py --draw``) -> (K, 2)
+    float32.  Needs an interactive backend; raises SystemExit headless."""
+    import matplotlib
+    if matplotlib.get_backend().lower() == "agg" and not os.environ.get("MPLBACKEND"):
+        raise SystemExit("--draw needs an interactive matplotlib backend (no display "
+                         "found); pass --points x,y ... or drop --draw instead")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(8, 8))
+    ax.set_title("Draw your racetrack.\nClick to add points; press Enter when finished.")
+    ax.set_xlim(0, 40)
+    ax.set_ylim(0, 40)
+    pts = plt.ginput(n=-1, timeout=0, show_clicks=True)
+    plt.close(fig)
+    if len(pts) < 2:
+        raise SystemExit("need at least 2 clicked points")
+    return np.asarray(pts, np.float32)
+
+
+def plot_mpc_strip(path, traj, horizon: int, out: str, dpi: int = 120) -> None:
+    """Write the MPC demo's strip plot: the reference path and the tracked
+    trajectory (``examples/mpc_demo.py --out``), headless (Agg)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure(figsize=(10, 4))
+    plt.plot(path[:, 0], path[:, 1], "k--", label="reference path")
+    plt.plot(traj[:, 0], traj[:, 1], "r-", label="MPC trajectory")
+    plt.scatter(traj[::10, 0], traj[::10, 1], c="r", s=12)
+    plt.legend()
+    plt.title(f"on-device ADMM MPC, horizon {horizon}, |u|<=1")
+    fig.savefig(out, dpi=dpi)
+    plt.close(fig)
+
+
+def animate_car(path, traj, out: str) -> None:
+    """Rectangle-car playback along a trajectory, heading from the velocity
+    vector (reference src/MPC/MPC.py:176-213; ``examples/mpc_demo.py
+    --animate``), saved as GIF (pillow) or MP4 (ffmpeg), headless."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib import animation, transforms
+    from matplotlib.patches import Rectangle
+
+    fig, ax = plt.subplots(figsize=(8, 8))
+    ax.set_xlim(path[:, 0].min() - 5, path[:, 0].max() + 5)
+    ax.set_ylim(path[:, 1].min() - 5, path[:, 1].max() + 5)
+    ax.set_aspect("equal")
+    ax.set_title("MPC following the drawn track")
+    ax.plot(path[:, 0], path[:, 1], "r--", label="track")
+    ax.plot(traj[:, 0], traj[:, 1], "g-", label="car trajectory")
+    ax.legend()
+    car = Rectangle((-0.5, -0.25), 1.0, 0.5, fc="tab:blue", ec="black")
+    ax.add_patch(car)
+    vel = np.gradient(traj, axis=0)
+
+    def frame(i):
+        th = np.arctan2(vel[i, 1], vel[i, 0]) if np.hypot(*vel[i]) > 1e-3 else 0.0
+        car.set_transform(transforms.Affine2D().rotate(th)
+                          .translate(traj[i, 0], traj[i, 1]) + ax.transData)
+        return (car,)
+
+    ani = animation.FuncAnimation(fig, frame, frames=len(traj), blit=True, interval=100)
+    ani.save(out, writer="pillow" if out.endswith(".gif") else "ffmpeg", fps=10)
     plt.close(fig)

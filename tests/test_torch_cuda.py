@@ -1481,3 +1481,60 @@ def test_laptime_evaluator_float64_gpu_matches_cpu():
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
     for got, want in zip(race["cuda"][3:], race["cpu"][3:]):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kw", [dict(rt_spatial="nearest1", rt_occlusion="edge"),
+                                dict(rt_spatial="bilinear", rt_occlusion="snap",
+                                     rt_grad=False),
+                                dict(rt_spatial="nearest", rt_occlusion="off")])
+def test_trace_fast_on_gpu_matches_cpu(gpu_params, kw):
+    """The element-gather scan (plain PyTorch) on the card against the same
+    call on the CPU with the card's texture, at the float32 scan bar; it
+    launches no kernel."""
+    cfg, params = gpu_params
+    cfg = dataclasses.replace(cfg, **kw)
+    rtex = params.rtex
+    if not cfg.rt_grad:          # the [R | e w] columns of the edge + grad texture
+        t = cfg.rt_theta_bins
+        rtex = rtex._replace(rt=rtex.rt[:, :3 * t] if cfg.rt_eff_occlusion == "edge"
+                             else rtex.rt[:, :t])
+    elif cfg.rt_eff_occlusion != "edge":
+        t = cfg.rt_theta_bins
+        rtex = rtex._replace(rt=torch.cat([rtex.rt[:, :t], rtex.rt[:, 3 * t:]], dim=1))
+    gp = params._replace(rtex=rtex)
+    cp = to_cpu(gp)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    poses = close_poses(gp, 256, 2, gen)
+    reset_launch_counts()
+    got = scan_fast.trace_fast(poses, gp.tables, gp.tmap, gp.rtex, cfg)
+    assert not any(launch_counts().values())
+    want = scan_fast.trace_fast(poses.cpu(), cp.tables, cp.tmap, cp.rtex, cfg)
+    err = (got.cpu() - want).abs()
+    assert float(err.flatten().quantile(0.99)) < 1e-3
+    assert float((err > 4 * float(cp.rtex.cell)).float().mean()) < 2e-3
+
+
+def test_world_size_one_ppo_update_on_gpu_equals_the_plain_step(tmp_path):
+    """A process group of one (NCCL on the card): train_ppo's distributed
+    branch at 512 envs takes one iteration torch.equal to the ungrouped
+    iteration (the one-process code runs)."""
+    _need_gpu()
+    from red_gym_tpu_torch.examples import train_ppo
+    from red_gym_tpu_torch.parallel import distributed as pdist
+
+    argv = ["--envs", "512", "--iters", "1", "--rollout", "8", "--rt-spatial", "nearest1"]
+    dev = torch.device("cuda", 0)
+    pdist.initialize(device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl" and pdist.world_size() == 1
+        pa, ha = train_ppo.run(train_ppo.parse_args(
+            argv + ["--save", str(tmp_path / "shards")]), dev, True)
+    finally:
+        pdist.shutdown()
+    assert os.path.exists(tmp_path / "shards" / "STEP")
+    pb, hb = train_ppo.run(train_ppo.parse_args(argv + ["--save", str(tmp_path / "ck.pt")]),
+                           dev, False)
+    for a, b in zip(pa.policy.parameters(), pb.policy.parameters()):
+        assert torch.equal(a, b)
+    assert all(ha[0][k] == hb[0][k] for k in ("loss", "reward_mean", "done_rate",
+                                              "speed_mean"))

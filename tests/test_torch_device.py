@@ -23,7 +23,10 @@ from red_gym_tpu_torch.utils.profiling import Metrics
 from red_gym_tpu_torch.agents import ppo
 from red_gym_tpu_torch.agents.pure_pursuit import load_waypoints_csv
 from red_gym_tpu_torch.examples import (collect_lidar_dataset, export_policy,
-                                        param_search_cma, waypoint_follow)
+                                        generalization_study, lidar_bitmap_example,
+                                        mpc_demo, param_search_cma, profile_components,
+                                        scan_error_study, waypoint_follow)
+from red_gym_tpu_torch.parallel import distributed as pdist, sharding
 from red_gym_tpu_torch.tuning import make_laptime_evaluator, search
 from red_gym_tpu_torch.utils import export
 
@@ -43,6 +46,10 @@ ENTRY_POINTS = {
     "interop.texture_from_numpy": interop.texture_from_numpy,
     "interop.state_from_numpy": interop.state_from_numpy,
     "vec_env.VecF110Env": vec_env.VecF110Env,
+    "parallel.distributed.initialize": pdist.initialize,
+    "parallel.distributed.choose_backend": pdist.choose_backend,
+    "parallel.distributed.local_device": pdist.local_device,
+    "parallel.sharding.make_env_mesh": sharding.make_env_mesh,
     "agents.planning_env.PlanningEnv": PlanningEnv,
     "agents.sac.SAC": SAC,
     "agents.sac.ReplayBuffer.create": ReplayBuffer.create,
@@ -54,7 +61,11 @@ ENTRY_POINTS = {
 }
 TOOL_EXAMPLES = {"param_search_cma": param_search_cma, "export_policy": export_policy,
                  "waypoint_follow": waypoint_follow,
-                 "collect_lidar_dataset": collect_lidar_dataset}
+                 "collect_lidar_dataset": collect_lidar_dataset,
+                 "profile_components": profile_components,
+                 "scan_error_study": scan_error_study,
+                 "generalization_study": generalization_study, "mpc_demo": mpc_demo,
+                 "lidar_bitmap_example": lidar_bitmap_example}
 TOOL_CFG = SimConfig(num_agents=1, num_beams=16, march_iters=8, scan_noise_std=0.0)
 
 
@@ -65,6 +76,14 @@ SAC_TRAINERS = {"train_sac": train_sac, "train_sac_bitmap_scale": train_sac_bitm
                 "train_sac_scale": train_sac_scale}
 
 CALLS_WITHOUT_DEVICE = {
+    "parallel.distributed.initialize": lambda: pdist.initialize(),
+    "parallel.distributed.choose_backend": lambda: pdist.choose_backend(),
+    "parallel.distributed.local_device": lambda: pdist.local_device(),
+    "parallel.sharding.make_env_mesh": lambda: sharding.make_env_mesh(),
+    **{f"examples.{name}.main": (lambda m=m: m.main([]))
+       for name in ("profile_components", "scan_error_study", "generalization_study",
+                    "mpc_demo", "lidar_bitmap_example")
+       for m in [__import__(f"red_gym_tpu_torch.examples.{name}", fromlist=["main"])]},
     "env.make_params": lambda: env.make_params(CFG, assets.named_map_yaml(TRACK)),
     "env.make_multimap_params": lambda: env.make_multimap_params(
         CFG, assets.packaged_tracks()[:2]),

@@ -41,7 +41,11 @@ def test_package_has_sources():
             "utils/export.py", "examples/param_search_cma.py",
             "examples/export_policy.py", "examples/waypoint_follow.py",
             "examples/waypoint_follow_compat.py",
-            "examples/collect_lidar_dataset.py"} <= names
+            "examples/collect_lidar_dataset.py", "parallel/__init__.py",
+            "parallel/distributed.py", "parallel/sharding.py", "parallel/draws.py",
+            "examples/profile_components.py", "examples/scan_error_study.py",
+            "examples/generalization_study.py", "examples/mpc_demo.py",
+            "examples/lidar_bitmap_example.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, PKG))
@@ -74,8 +78,9 @@ def test_gymnasium_and_matplotlib_stay_in_their_modules(path):
                 f"{rel} imports {name}" + (" at module level" if at_top else "")
 
 
-# the tooling tier (maps, EDT, tuning, export and their examples): each
-# imports in a fresh interpreter where the packages the GPU machine lacks
+# the tooling tier (maps, EDT, tuning, export and their examples), the
+# data-parallel trainer and the last five examples: each imports in a
+# fresh interpreter where the packages the GPU machine lacks
 # (and JAX) cannot be imported at all
 TOOL_MODULES = ["red_gym_tpu_torch.ops.edt", "red_gym_tpu_torch.ops.edt_kernels",
                 "red_gym_tpu_torch.maps.loader", "red_gym_tpu_torch.maps.trackgen",
@@ -85,7 +90,16 @@ TOOL_MODULES = ["red_gym_tpu_torch.ops.edt", "red_gym_tpu_torch.ops.edt_kernels"
                 "red_gym_tpu_torch.examples.export_policy",
                 "red_gym_tpu_torch.examples.waypoint_follow",
                 "red_gym_tpu_torch.examples.waypoint_follow_compat",
-                "red_gym_tpu_torch.examples.collect_lidar_dataset"]
+                "red_gym_tpu_torch.examples.collect_lidar_dataset",
+                # the data-parallel trainer and the last five examples
+                "red_gym_tpu_torch.parallel.distributed",
+                "red_gym_tpu_torch.parallel.sharding",
+                "red_gym_tpu_torch.examples.train_ppo",
+                "red_gym_tpu_torch.examples.profile_components",
+                "red_gym_tpu_torch.examples.scan_error_study",
+                "red_gym_tpu_torch.examples.generalization_study",
+                "red_gym_tpu_torch.examples.mpc_demo",
+                "red_gym_tpu_torch.examples.lidar_bitmap_example"]
 ABSENT = ("jax", "jaxlib", "flax", "red_gym_tpu", "PIL", "cv2", "yaml", "gymnasium",
           "matplotlib")
 
