@@ -269,14 +269,17 @@ F32_FLOPS, BF16_FLOPS, F64_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 67e12, 3.35e1
 # single-track evaluations of RK4, cell lookup): even so they take less
 # time than its bytes, so bytes bound it
 PRESTEP_OPS_PER_ROW = 1000
-# the march kernel's (csrc/march.cu) operations, from the source, counted at
-# the float32 rate outside the tensor cores: a ray-iteration of march_ray is the end
-# test (2 compares), the step (2 multiplies, 2 adds), dt_lookup (2
-# subtractions, a negation, 4 multiplies, 2 adds, 4 compares, 2 divisions,
-# 2 float-to-int casts) and the running total (1 add); theta_index is 12
-# (subtract, multiply, two floored remainders of 3, the offset's multiply,
-# add and 2 casts)
+# the march kernel's (csrc/march.cu) operations, from the source: a
+# ray-iteration of march_ray is the end test (2 compares), the step (2
+# multiplies, 2 adds), dt_lookup (2 subtractions, a negation, 4 multiplies,
+# 2 adds, 4 compares, 2 divisions, 2 float-to-int casts) and the running
+# total (1 add); theta_index is 12 (subtract, multiply, two floored
+# remainders of 3, the offset's multiply, add and 2 casts).  None is a fused
+# multiply-add, so each counts as one lane instruction at 128 a cycle an SM,
+# LANE_OPS_PER_S: half of F32_FLOPS, which counts an FMA as two.  Divisions
+# and casts issue slower still, so the bound is a floor.
 MARCH_OPS_PER_ITER, THETA_INDEX_OPS = 24, 12
+LANE_OPS_PER_S = F32_FLOPS / 2
 MARCH_STEP_MS = 50.0     # the exact path times fewer steps above this a step
 MARCH_F64_ENVS = 1024
 
@@ -539,12 +542,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(moved: int, f32: float = 0.0, bf16: float = 0.0, f64: float = 0.0) -> dict:
+def bound(moved: int, f32: float = 0.0, bf16: float = 0.0, f64: float = 0.0,
+          lane: float = 0.0) -> dict:
     """The least time the card could take: the larger of the operations
     (float32, bf16-input and float64 ones, each type over the card's peak
-    rate for it, summed) and the bytes (each input read once, each output
-    written once) over the memory rate."""
-    ops_ms = 1e3 * (f32 / F32_FLOPS + bf16 / BF16_FLOPS + f64 / F64_FLOPS)
+    rate for it, and ``lane`` operations that are one lane instruction each,
+    at LANE_OPS_PER_S, summed) and the bytes (each input read once, each
+    output written once) over the memory rate."""
+    ops_ms = 1e3 * (f32 / F32_FLOPS + bf16 / BF16_FLOPS + f64 / F64_FLOPS
+                    + lane / LANE_OPS_PER_S)
     bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -942,28 +948,49 @@ def march_iterations(poses, tables, tmap, cfg, midx=None):
 
 
 def iteration_stats(n_it) -> dict:
-    """Iterations a ray: mean, p99, max, and the mean over warps (32
+    """Iterations a ray: mean, p99, max; the mean over warps (32
     neighbouring rays, which a warp of the kernel holds and runs as long as
-    its longest) of that longest."""
+    its longest) and over blocks (256 neighbouring rays, whose slot on an
+    SM a block keeps until its longest ends) of that longest; and the lane
+    utilisation of the warps, the iterations over 32 lanes times the warps'
+    longest."""
     import torch
+
+    def longest(k: int):
+        return torch.nn.functional.pad(n_it, (0, -n_it.numel() % k)).reshape(-1, k).amax(1)
 
     rays = n_it.numel()
     srt = n_it.sort().values
-    warp_max = torch.nn.functional.pad(n_it, (0, -rays % 32)).reshape(-1, 32).amax(dim=1)
+    warp_max = longest(32)
+    iters = float(n_it.sum(dtype=torch.int64))
     return {"mean": float(n_it.float().mean()), "p99": int(srt[int(0.99 * (rays - 1))]),
-            "max": int(srt[-1]), "warp_max_mean": float(warp_max.float().mean())}
+            "max": int(srt[-1]), "warp_max_mean": float(warp_max.float().mean()),
+            "block_max_mean": float(longest(256).float().mean()),
+            "lane_utilisation": iters / (32 * float(warp_max.sum(dtype=torch.int64)))}
+
+
+def say_iterations(label: str, its: dict) -> None:
+    """One line: the iterations a ray, a warp's and a block's longest, and
+    the lane utilisation of the kernel (one thread a ray), counted on the
+    replay: predicted and achieved are one number, since a warp of the
+    kernel runs exactly as long as its longest ray."""
+    say("kernel", f"{label}: iterations a ray mean {its['mean']:.2f}, p99 {its['p99']}, max "
+        f"{its['max']}; longest of a warp's 32 mean {its['warp_max_mean']:.2f}, of a "
+        f"block's 256 mean {its['block_max_mean']:.2f}; lane utilisation, predicted and "
+        f"achieved (replay, one thread a ray): {its['lane_utilisation']:.3f}")
 
 
 def march_bound(out, tmap, tables, poses, iterations: int, rays: int,
                 midx=None) -> dict:
     """The float32 march's bound: its operations (MARCH_OPS_PER_ITER a
     counted iteration and the first lookup of each ray, THETA_INDEX_OPS a
-    ray) against its bytes (the (K, B) output written once, the distance
-    transform or the stack of them, poses, map indices and theta tables
-    read once)."""
+    ray), each one lane instruction at LANE_OPS_PER_S, against its bytes
+    (the (K, B) output written once, the distance transform or the stack of
+    them, poses, map indices and theta tables read once) over the memory
+    rate."""
     ops = MARCH_OPS_PER_ITER * (iterations + rays) + THETA_INDEX_OPS * rays
     return bound(nbytes(out, tmap.dt, poses, midx, tables.cosines, tables.sines),
-                 f32=float(ops))
+                 lane=float(ops))
 
 
 def march_phase(cfg, params, dev, reports) -> dict:
@@ -996,10 +1023,9 @@ def march_phase(cfg, params, dev, reports) -> dict:
     checks = {"float32": torch.equal(out_k, out_r), "replay": torch.equal(out_k, out_e)}
     say("kernel", f"march: {ENVS} x {AGENTS} cars x {cfg.num_beams} beams = {rays} rays, "
         f"float32: kernel torch.equal to its twin {checks['float32']} and to the counted "
-        f"replay {checks['replay']}; iterations a ray mean {its['mean']:.2f}, p99 "
-        f"{its['p99']}, max {its['max']}, longest of a warp's 32 mean "
-        f"{its['warp_max_mean']:.2f}; ranges in [{float(out_k.min()):.3f}, "
+        f"replay {checks['replay']}; ranges in [{float(out_k.min()):.3f}, "
         f"{float(out_k.max()):.3f}] m")
+    say_iterations("march", its)
 
     it_cfg = dataclasses.replace(cfg, march_iters=40)
     got = mk.march_beams(poses, tables.cosines, tables.sines, tmap, it_cfg)
@@ -1024,7 +1050,8 @@ def march_phase(cfg, params, dev, reports) -> dict:
     lims = march_bound(out_k, tmap, tables, poses, int(n_it.sum(dtype=torch.int64)), rays)
     say("kernel", f"march: bound from {int(n_it.sum(dtype=torch.int64))} counted "
         f"iterations x {MARCH_OPS_PER_ITER} operations and {rays} rays x "
-        f"({MARCH_OPS_PER_ITER} + {THETA_INDEX_OPS}) at {F32_FLOPS / 1e12:.0f} TFLOP/s, "
+        f"({MARCH_OPS_PER_ITER} + {THETA_INDEX_OPS}), a lane instruction each at "
+        f"{LANE_OPS_PER_S / 1e12:.1f}e12/s, "
         f"against {nbytes(out_k, tmap.dt, poses, tables.cosines, tables.sines) / 1e6:.1f} MB")
     rec = timed("march", kernel, twin, lims, resources(reports, "march"),
                 ("march_beams_kernel",))
@@ -1162,10 +1189,10 @@ def multimap_march_phase(cfg, params, midx, dev, reports) -> dict:
     torch.cuda.synchronize()
     checks["stacked == standalone, every map"] = all(alone.values())
     say("kernel", f"march (stacked, {m_n} maps, env e on map e % {m_n}): {ENVS} x "
-        f"{AGENTS} cars x {cfg.num_beams} beams = {n_it.numel()} rays; iterations a ray "
-        f"mean {its['mean']:.2f}, p99 {its['p99']}, max {its['max']}, longest of a warp's "
-        f"32 mean {its['warp_max_mean']:.2f}; ranges in [{float(out_k.min()):.3f}, "
-        f"{float(out_k.max()):.3f}] m; torch.equal: {checks}; by map {alone}")
+        f"{AGENTS} cars x {cfg.num_beams} beams = {n_it.numel()} rays; ranges in "
+        f"[{float(out_k.min()):.3f}, {float(out_k.max()):.3f}] m; torch.equal: {checks}; "
+        f"by map {alone}")
+    say_iterations("march (stacked)", its)
     if not all(checks.values()):
         fail(f"march (stacked): kernel not bit-equal: {checks}, by map {alone}")
     if float(out_k.mean()) < 0.5:
@@ -1276,7 +1303,8 @@ def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
     (E,), start table (M, A, 3)) runs map-stacked params: env e starts at
     its map's row of the table, and each auto-reset draws a map and its
     start (make_rollout's randomize_starts).  ``start`` (A, 3) replaces
-    track_0019's waypoint starts; ``out`` receives the final carry."""
+    track_0019's waypoint starts; ``out`` receives the final carry and the
+    env-steps/s."""
     import torch
 
     from red_gym_tpu_torch import assets, rollout
@@ -1343,6 +1371,7 @@ def main_path(label: str, cfg, params, dev, steps: int, uses: tuple,
         fail(f"{label}: most beams read under 0.5 m: degenerate scans")
     if out is not None:
         out["carry"] = carry
+        out["env_steps_per_s"] = ENVS * steps / seconds
     if maps is not None:
         used = torch.bincount(carry.state.map_idx.long(), minlength=maps[1].shape[0])
         say(f"main:{label}", f"envs on each map after the run: {used.tolist()}")

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Same-card A/B of the port's pre-scan state kernel between another
-checkout of this repository and this one, on an NVIDIA GPU.
+"""Same-card A/B of one of the port's kernels between another checkout of
+this repository and this one, on an NVIDIA GPU: the pre-scan state kernel
+(``--kernel prestep``, the default) or the exact scan's march
+(``--kernel march``).
 
-    python3 prestep_ab.py OTHER [--json PATH]
+    python3 prestep_ab.py OTHER [--kernel prestep|march] [--json PATH]
 
 ``OTHER`` is a checkout of another commit, for example the parent's
 ``git archive`` unpacked under ``_checkout/``.  Each checkout runs in a
-subprocess of its own, with its own ``red_gym_tpu_torch`` (its kernel built
-from its sources), in turns OTHER, this, this, OTHER, at K = 16384 x 2 rows
-of the default config (track_0019, float32) on two input sets: ``random``
+subprocess of its own, with its own ``red_gym_tpu_torch`` (its kernels built
+from its sources), in turns OTHER, this, this, OTHER.  Each run reports,
+through the functions of this tree's ``chip_smoke.py``:
+
+``--kernel prestep``, at K = 16384 x 2 rows of the default config
+(track_0019, float32) on two input sets: ``random``
 (``chip_smoke.random_states``, about a quarter of the cars in the kinematic
 branch) and ``rollout`` (the cars of the default path after 10 steps of the
-random policy).  Each run reports, through the functions both checkouts
-share:
+random policy):
 
 - ``equal``: all five outputs of ``state_kernels.prestep`` ``torch.equal``
   to ``prestep_reference``, for RK4 and Euler;
@@ -24,11 +28,28 @@ share:
   ``section_us`` that of ``env.sim_step`` from its start to the return of
   its state-kernel call, where the step is cut short (the scope check, the
   pack and the call), both by ``chip_smoke.host_us`` (200 calls behind
-  ``torch.cuda._sleep``).
+  ``torch.cuda._sleep``);
 
-Then ``floor_ms``: the device time of an empty kernel launched with each
-checkout's grid and block.  The last line is one JSON object with every
-number; ``--json`` also writes it to a file.
+then ``floor_ms``: the device time of an empty kernel launched with each
+checkout's grid and block.
+
+``--kernel march``, float32, on four operands of ``march_kernels.
+march_beams``: ``full``, 16384 x 2 cars x 1080 beams on random free poses
+of track_0019 (``chip_smoke.march_phase``'s); ``stacked``, the same on the
+11 packaged tracks, env e on track e % 11 (``multimap_march_phase``'s);
+``gym_compat``, one env's 2 x 1080 rays; ``param_search``, the CMA-ES
+race's 50 x 64 rays:
+
+- ``equal``: the kernel ``torch.equal`` to ``march_beams_reference`` on
+  each, and with ``march_iters=40`` at full width;
+- ``device_ms`` (as above) and ``window_ms`` (``chip_smoke.median_ms``:
+  the median CUDA-event window of back-to-back calls);
+- ``launch``: grid, block and registers from the profiler's trace;
+- ``env_steps_per_s`` of the ``exact`` and ``multimap_exact`` main paths
+  (``chip_smoke.main_path``, 200 steps after 10 warm-up steps).
+
+The last line is one JSON object with every number; ``--json`` also writes
+it to a file.
 """
 
 from __future__ import annotations
@@ -41,7 +62,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL = "prestep_kernel"
+# the device kernel of each A/B, by a part of its name both checkouts share
+DEVICE_NAME = {"prestep": "prestep_kernel", "march": "march_beams"}
 EMPTY_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -56,9 +78,10 @@ class _Stop(Exception):
     """Cuts env.sim_step short after its state-kernel call."""
 
 
-def launch_shape(fn, out_dir: str, cs) -> dict:
-    """Grid, block and registers of the KERNEL that ``fn`` launches, from
-    the kernel record of a torch.profiler trace."""
+def launch_shape(fn, out_dir: str, cs, kernel: str) -> dict:
+    """Grid, block and registers of the device kernel named ``kernel``
+    that ``fn`` launches, from the kernel record of a torch.profiler
+    trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -71,23 +94,33 @@ def launch_shape(fn, out_dir: str, cs) -> dict:
         events = json.load(f)["traceEvents"]
     os.remove(path)
     for e in events:
-        if e.get("cat") == "kernel" and KERNEL in e.get("name", ""):
+        if e.get("cat") == "kernel" and kernel in e.get("name", ""):
             a = e["args"]
             return {"grid": a["grid"], "block": a["block"],
                     "regs": a.get("registers per thread")}
-    cs.fail(f"no {KERNEL} record in the profiler's trace")
+    cs.fail(f"no {kernel} record in the profiler's trace")
 
 
-def measure(root: str) -> dict:
-    """Every number of the checkout at ``root``, with its own package."""
-    import dataclasses
+def this_chip_smoke(root: str):
+    """This tree's chip_smoke.py, in either run, with the checkout at
+    ``root`` first on the path, so its functions import that checkout's
+    package."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)  # this tree's, in either run
+    cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     sys.path[:0] = [root]
+    return cs
+
+
+def measure_prestep(root: str) -> dict:
+    """Every number of the state kernel's A/B of the checkout at ``root``,
+    with its own package."""
+    import dataclasses
+
+    cs = this_chip_smoke(root)
     import torch
 
     from red_gym_tpu_torch import assets, env, rollout
@@ -123,13 +156,13 @@ def measure(root: str) -> dict:
                 bool(torch.equal(g, w)) for g, w in zip(got, want))
         res["device_ms"][name] = cs.device_ms(
             lambda args=args: state_kernels.prestep(cfg, params, *args, pack),
-            (KERNEL,))["total"]
+            (DEVICE_NAME["prestep"],))["total"]
     args = sets["random"]
 
     def call():
         state_kernels.prestep(cfg, params, *args, pack)
 
-    res["launch"] = launch_shape(call, _build.BUILD_DIR, cs)
+    res["launch"] = launch_shape(call, _build.BUILD_DIR, cs, DEVICE_NAME["prestep"])
     res["host_us"] = cs.host_us(call)
 
     prestep = state_kernels.prestep
@@ -151,6 +184,70 @@ def measure(root: str) -> dict:
     res["section_us"] = cs.host_us(section)
     state_kernels.prestep = prestep
     return res
+
+
+def measure_march(root: str) -> dict:
+    """Every number of the march's A/B of the checkout at ``root``, with
+    its own package."""
+    import dataclasses
+
+    cs = this_chip_smoke(root)
+    import torch
+
+    from red_gym_tpu_torch import assets, env
+    from red_gym_tpu_torch.config import SimConfig
+    from red_gym_tpu_torch.ops import _build, march_kernels as mk
+
+    if not os.path.abspath(mk.__file__).startswith(os.path.abspath(root)):
+        cs.fail(f"imported {mk.__file__}, not the one under {root}")
+    dev = torch.device("cuda", 0)
+    cfg = SimConfig(num_agents=cs.AGENTS, num_beams=cs.BEAMS)
+    params = env.make_params(cfg, assets.named_map_yaml(cs.TRACK), device=dev)
+    tracks = assets.packaged_tracks()
+    mm = env.make_multimap_params(cfg, tracks, device=dev)
+    midx = (torch.arange(cs.ENVS, device=dev) % len(tracks)).to(torch.int32)
+    raws = [cs.map_of_stack(mm.tmap, m, unpad=True) for m in range(len(tracks))]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    full = cs.map_free_poses(params.tmap, cs.ENVS * cs.AGENTS, gen).reshape(
+        cs.ENVS, cs.AGENTS, 3)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    stacked = cs.per_map_poses(lambda m, n: cs.map_free_poses(raws[m], n * cs.AGENTS, gen)
+                               .reshape(n, cs.AGENTS, 3), midx, cs.AGENTS)
+    rows = midx[:, None].expand(cs.ENVS, cs.AGENTS).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    one = cs.map_free_poses(params.tmap, cs.AGENTS, gen).reshape(1, cs.AGENTS, 3)
+    race = cs.map_free_poses(params.tmap, 50, gen).reshape(50, 1, 3)
+    race_cfg = dataclasses.replace(cfg, num_beams=64)
+    it_cfg = dataclasses.replace(cfg, march_iters=40)
+    operands = {  # (poses, params, cfg, map index)
+        "full": (full, params, cfg, None), "full_iters40": (full, params, it_cfg, None),
+        "stacked": (stacked, mm, cfg, rows), "gym_compat": (one, params, cfg, None),
+        "param_search": (race, params, race_cfg, None)}
+    res = {"equal": {}, "device_ms": {}, "window_ms": {}}
+    for name, (poses, p, c, mi) in operands.items():
+        def kernel(poses=poses, p=p, c=c, mi=mi):
+            return mk.march_beams(poses, p.tables.cosines, p.tables.sines, p.tmap, c, mi)
+
+        res["equal"][name] = bool(torch.equal(kernel(), mk.march_beams_reference(
+            poses, p.tables.cosines, p.tables.sines, p.tmap, c, mi)))
+        if name == "full_iters40":
+            continue
+        res["device_ms"][name] = cs.device_ms(kernel, (DEVICE_NAME["march"],))["total"]
+        res["window_ms"][name] = cs.median_ms(kernel, cs.TIMING_REPS)
+        if name == "full":
+            res["launch"] = launch_shape(kernel, _build.BUILD_DIR, cs, DEVICE_NAME["march"])
+    table = torch.as_tensor(assets.start_pose_table(tracks, cs.AGENTS), dtype=cfg.tdtype,
+                            device=dev)
+    res["env_steps_per_s"] = {}
+    for label, p, maps in (("exact", params, None), ("multimap_exact", mm, (midx, table))):
+        out = {}
+        cs.main_path(label, cfg, p, dev, cs.STEPS, ("march[beams]",), False,
+                     max_step_ms=cs.MARCH_STEP_MS, maps=maps, out=out)
+        res["env_steps_per_s"][label] = out["env_steps_per_s"]
+    return res
+
+
+MEASURE = {"prestep": measure_prestep, "march": measure_march}
 
 
 def floors(shapes: dict, cs) -> dict:
@@ -184,11 +281,13 @@ def floors(shapes: dict, cs) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="checkout of the commit to compare with")
+    ap.add_argument("--kernel", choices=sorted(MEASURE), default="prestep",
+                    help="the kernel to compare (default: prestep)")
     ap.add_argument("--json", metavar="PATH", help="also write the result to this file")
     ap.add_argument("--one", metavar="ROOT", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.one:
-        print(json.dumps(measure(a.one)), flush=True)
+        print(json.dumps(MEASURE[a.kernel](a.one)), flush=True)
         return
     import chip_smoke as cs
     import torch
@@ -201,15 +300,16 @@ def main() -> None:
     runs = {n: [] for n in roots}
     for n in ("other", "this", "this", "other"):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), a.other,
-                               "--one", roots[n]], capture_output=True, text=True,
-                              timeout=600)
+                               "--kernel", a.kernel, "--one", roots[n]],
+                              capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             cs.fail(f"the run of {roots[n]} failed:\n{proc.stdout}\n{proc.stderr}")
         runs[n].append(json.loads(proc.stdout.strip().splitlines()[-1]))
         cs.say("ab", f"{n}: {runs[n][-1]}")
-    floor = floors({n: r[0]["launch"] for n, r in runs.items()}, cs)
-    cs.say("ab", f"floor ms: {floor}")
-    result = {"card": smi, "K": cs.ENVS * cs.AGENTS, "runs": runs, "floor_ms": floor}
+    result = {"card": smi, "kernel": a.kernel, "K": cs.ENVS * cs.AGENTS, "runs": runs}
+    if a.kernel == "prestep":
+        result["floor_ms"] = floors({n: r[0]["launch"] for n, r in runs.items()}, cs)
+        cs.say("ab", f"floor ms: {result['floor_ms']}")
     if a.json:
         os.makedirs(os.path.dirname(os.path.abspath(a.json)), exist_ok=True)
         with open(a.json, "w") as f:

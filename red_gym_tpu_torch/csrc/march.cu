@@ -34,17 +34,41 @@
 // distance transform (track_0019, float32) that stays in the 50 MB L2.  Its
 // work is 24 operations a ray-iteration, times the iterations the data
 // decide (on random free poses of track_0019: 6.7 a ray on average, 29 at
-// the 99th percentile, 116 at most), about 0.1 ms at the float32 rate; so
-// operations bound it, not bytes.  But each iteration is a dependent chain
-// of two IEEE divisions and a gather from L2, so latency, not the issue
-// rate, is what a thread waits on, and a warp runs as long as its longest
-// ray.  Design: the simplest form that keeps that latency hidden, one
-// thread a ray (the beams of one car side by side in a warp, whose rays run
-// similar courses), 256 threads a block, 32 registers and no shared memory,
-// so 2048 rays are in flight on each SM; the distance transform is read
-// through the read-only cache.  It took 1.10 ms on an H100 80GB HBM3 at
-// 700 W (PERF.md).  Compacting the rays still running, or a persistent
-// grid, would cut the warps' idle lanes and is left for later.
+// the 99th percentile, 116 at most), and 12 a ray for its theta index.  None
+// is a fused multiply-add, so each is one lane instruction, at most 128 a
+// cycle an SM (half the float32 FLOP rate, which counts an FMA as two):
+// about 0.21 ms, and only a floor, since each IEEE division is a reciprocal
+// and a Newton sequence and each cast issues at a quarter of the rate.  The
+// kernel takes about five times that, waiting on its gathers: each
+// iteration is a dependent chain ending in a read of the distance
+// transform, and a warp runs as long as its longest ray (10.3 iterations
+// against 6.7 a ray).  Design: the simplest form that keeps many gathers in
+// flight and each of them narrow: one thread a ray, the adjacent beams of
+// one car side by side in a warp (their rays start together and run similar
+// courses, so a warp's lookups share sectors of the distance transform),
+// 256 threads a block, 32 registers and no shared memory, so 2048 rays are
+// in flight on each SM and all of L1 is left to the read-only cache.  It
+// took 1.09-1.10 ms on an H100 80GB HBM3 at 700 W (PERF.md).
+//
+// Tried and dropped, each bit-equal to the twin and measured against this
+// form on the same card (PERF.md):
+// - a persistent grid whose idle lanes take the warp's next rays (a ring of
+//   prepared rays in shared memory, __ballot_sync and __popc prefix ranks, a
+//   refill at 8 idle lanes, one or two rays a lane): 0.92 of the lanes' slots
+//   march against 0.65 here, yet 1.36-1.49x slower on one map and 1.57-1.75x
+//   on the stack, and slower at small launches.  A refilled warp marches
+//   rays of many cars, so each gather touches about as many sectors as it has
+//   lanes, and the ring and the second ray took 54-56 registers;
+// - the same grid refilling a lane group only once all 32 of its rays have
+//   ended, and two rays a thread in this form (32-48 registers): slower
+//   still, as is this form held to fewer resident warps;
+// - a multiply by the reciprocal of the resolution in place of the two
+//   divisions (exact for a power-of-two resolution, guarded by the division
+//   near cell boundaries), int32 row indices and a shortcut of the second
+//   floored remainder: 3 % on one map, none on the stack;
+// - rows ordered along a Z curve of the cars' positions: 2-4 %;
+// - the distance transform copied in tiles of 8 x 4 cells a 128-byte line,
+//   so a warp's lookups share more lines: 8-14 % slower.
 //
 // The stacked form.  The 11 packaged tracks' float32 transforms, padded to
 // 952 x 947, are 39.7 MB: still within L2.  A one-map thread reads its map's

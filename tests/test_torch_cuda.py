@@ -17,7 +17,8 @@ edge epilogues (csrc/edge_render.cuh, the megakernel's render) and kernels
 dtypes, and whole env steps on the GPU (default, unfused and spectral
 modes) against the same steps on the CPU.  The march kernel of the exact
 scan (csrc/march.cu) is held bit-equal to its twin in both entry forms,
-float32 and float64, march_iters 0 and 40, at ray counts around its block,
+float32 and float64, march_iters 0 and 40, at ray counts around a warp and
+its block (the stacked form too),
 from origins outside the map, and through a texture build; an exact-mode
 F110Env step on the GPU is held against the same step on the CPU.
 Multi-map batches: the march kernel's stacked form (map indices 0 to
@@ -914,10 +915,15 @@ def test_march_kernel_bit_equal_to_twin(gpu_maps, dtype, form, march_iters):
     assert float(got.mean()) > 0.5 and float(got.max()) <= cfg.max_range
 
 
-@pytest.mark.parametrize("n", [1, 31, 255, 256, 257, 511, 513, 4097])
+# ray counts around a warp's 32 lanes and the march kernel's 256-thread
+# block
+RAY_COUNTS = [1, 31, 32, 33, 63, 65, 255, 256, 257, 511, 513, 4097]
+
+
+@pytest.mark.parametrize("n", RAY_COUNTS)
 def test_march_kernel_ray_counts_around_the_block(gpu_maps, n):
-    """Both forms at ray counts around the kernel's 256-thread block: rays
-    n, and beams of one car (B = n) and of n cars (B = 3)."""
+    """Both forms at ray counts around a warp and the kernel's 256-thread
+    block: rays n, and beams of one car (B = n) and of n cars (B = 3)."""
     tmap, tables = gpu_maps["float32"]
     gen = torch.Generator(device="cuda").manual_seed(n)
     poses = map_free_poses(tmap, n, gen)
@@ -1099,6 +1105,27 @@ def test_march_kernel_stacked_rays_leave_their_map(gpu_stack, dtype):
     got = march_kernels.march_beams(poses, tables.cosines, tables.sines, tmap, cfg, midx)
     assert torch.equal(got, march_kernels.march_beams_reference(
         poses, tables.cosines, tables.sines, tmap, cfg, midx))
+
+
+@pytest.mark.parametrize("n", RAY_COUNTS)
+def test_march_kernel_stacked_ray_counts_around_the_block(gpu_stack, n):
+    """The stacked form at the ray counts of
+    ``test_march_kernel_ray_counts_around_the_block``: rays n on maps
+    i % M, beams of one car (B = n) and of n cars (B = 3) on maps i % M."""
+    tmap, tables, alone = gpu_stack["float32"]
+    gen = torch.Generator(device="cuda").manual_seed(n + 7)
+    midx = (torch.arange(n, device="cuda") % len(STACK)).to(torch.int32)
+    poses = _stack_poses(alone, midx, gen)[:, 0]
+    ang = 2 * torch.pi * torch.rand((n,), generator=gen, device="cuda")
+    cfg = SimConfig()
+    args = (poses[:, 0], poses[:, 1], torch.cos(ang), torch.sin(ang), tmap, cfg, midx)
+    assert torch.equal(march_kernels.march(*args), march_kernels.march_reference(*args))
+    for rows, beams, m in ((poses[:1], max(n, 2), midx[:1]), (poses, 3, midx)):
+        c = dataclasses.replace(cfg, num_beams=beams)
+        got = march_kernels.march_beams(rows, tables.cosines, tables.sines, tmap, c, m)
+        assert got.shape == (rows.shape[0], beams)
+        assert torch.equal(got, march_kernels.march_beams_reference(
+            rows, tables.cosines, tables.sines, tmap, c, m))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
