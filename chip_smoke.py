@@ -163,10 +163,12 @@ line:
      XLA's fused broadcast of red_gym_tpu/ops/rasterize.py, no TPU kernel)
      on 64 scans of 1080 beams from the exact scan at random free poses of
      track_0019, 600 beams drawn on 256 x 256: the fill, the polygon
-     outline and the rays torch.equal to their twins on the card, times,
-     bounds (operations counted from this run's crossings), registers and
-     spills; lidar_to_bitmap in FILL, POLYGON and RAYS on the card equal to
-     the same call on the CPU (4 images);
+     outline and the rays torch.equal to their twins on the card; the
+     outline's runs of one pixel along its samples and its distinct pixels
+     an image (the twin's arithmetic, on the host); times at 64 images and
+     at one, bounds (the least work counted from this run's crossings and
+     segments), registers and spills; lidar_to_bitmap in FILL, POLYGON and
+     RAYS on the card equal to the same call on the CPU (4 images);
    - [sac_bitmap]: train_sac_bitmap_scale's trainer at its defaults (64
      envs, 256 px, bf16 CNN, batch 64, a 25,000-transition uint8 replay,
      reward_mode "fixed"): one warm-up iteration and one update iteration
@@ -578,7 +580,7 @@ KERNEL_FUNCTIONS = {
     "march": ("march", "march_beams_kernel<float>"),
     "march+stacked": ("march", "march_beams_stacked_kernel<float>"),
     "fill_polygon": ("rasterize", "fill_polygon_kernel"),
-    "draw_segments": ("rasterize", "draw_segments_kernel"),
+    "draw_segments": ("rasterize", "draw_segments_kernel<true, 14>"),
     "edt": ("edt", "edt_col_kernel"),
 }
 
@@ -1854,14 +1856,16 @@ def gym_compat_phase(dev, profile: bool) -> dict:
 
 RASTER_ENVS = 64          # images of the [rasterize] phase: the bitmap trainer's envs
 RASTER_CHECK_ENVS = 4     # of them drawn again on the CPU for the whole-call check
-# the rasterizer's operations, from csrc/rasterize.cu, at the float32 rate:
-# the fill's edge pass is 3 a (row, edge) (two compares and their xor) and 7
-# a crossing edge (the denominator's compare and select, three
-# subtractions, a product, a division and a sum); its pixel pass 2 a
-# (pixel, crossing edge) (a compare and a count); the draw 15 a sample
-# (1 - t; per coordinate a product, a fused multiply-add counted as 2, a
-# rint and a 2-sided clip; the pixel index)
-FILL_EDGE_OPS, FILL_CROSS_OPS, FILL_PIXEL_OPS, DRAW_SAMPLE_OPS = 3, 7, 2, 15
+# the rasterizer's least work, one lane instruction an operation at
+# LANE_OPS_PER_S: the fill 4 an edge (its two y's converted, their min and
+# max: the rows it crosses), 8 a crossing (row, edge) pair (the
+# denominator's compare and select, three subtractions, a product, a
+# division, a sum, and the crossing's place in the row) and 1 a pixel (its
+# parity written), not the (row, edge) tests of a kernel that sweeps every
+# edge; the draw 12 a sample of a segment whose endpoints differ (1 - t; per
+# coordinate a product, a fused multiply-add, a rint and a two-sided clip;
+# the pixel index), none for a one-pixel segment (its pixel alone)
+FILL_EDGE_OPS, FILL_CROSS_OPS, FILL_PIXEL_OPS, DRAW_SAMPLE_OPS = 4, 8, 1, 12
 SAC_PROFILE_STEPS = 3     # planning steps under torch.profiler in [sac_bitmap]
 # the planning step's profiler ranges (agents/planning_env.py) and the policy's
 PLAN_RANGES = ("sac/policy", "plan/mpc", "plan/env_step", "plan/bitmap", "plan/reward")
@@ -1887,9 +1891,9 @@ def raster_points(dev):
 
 
 def fill_bound(points, h: int, w: int) -> dict:
-    """The fill's bound: its operations counted on this run's polygons (the
-    crossing edges of each row) against its bytes (points read, the mask
-    written)."""
+    """The fill's bound: its least work counted on this run's polygons (a
+    few operations an edge, a crossing (row, edge) pair and a pixel) against
+    its bytes (points read, the mask written)."""
     import torch
 
     ys = points[..., 1].float()
@@ -1897,16 +1901,48 @@ def fill_bound(points, h: int, w: int) -> dict:
     rows = torch.arange(h, dtype=torch.float32, device=points.device)[:, None]
     crossings = sum(int(((y[None] > rows) != (z[None] > rows)).sum()) for y, z in zip(ys, y2))
     n, k = points.shape[:2]
-    ops = (FILL_EDGE_OPS * n * h * k + FILL_CROSS_OPS * crossings
-           + FILL_PIXEL_OPS * crossings * w)
-    return {**bound(nbytes(points) + n * h * w, f32=float(ops)), "crossings": crossings}
+    ops = FILL_EDGE_OPS * n * k + FILL_CROSS_OPS * crossings + FILL_PIXEL_OPS * n * h * w
+    return {**bound(nbytes(points) + n * h * w, lane=float(ops)), "crossings": crossings}
+
+
+def draw_bound(starts, ends, t, h: int, w: int) -> dict:
+    """The draw's bound: the samples of the segments whose endpoints differ
+    in this run, DRAW_SAMPLE_OPS each, against its bytes (endpoints and t
+    read, the mask written once)."""
+    moving = int((starts != ends).any(-1).sum())
+    samples = moving * t.numel()
+    return {**bound(nbytes(starts, ends, t) + starts.shape[0] * h * w,
+                    lane=float(DRAW_SAMPLE_OPS * samples)), "samples": samples}
+
+
+def segment_runs(starts, ends, t, h: int, w: int, images: int = 8) -> dict:
+    """On the host, with the twin's arithmetic (draw_segments_reference):
+    the runs of one pixel along the segments' samples (the stores a run test
+    leaves) and the one-pixel segments, {"runs", "segments", "one_pixel"}."""
+    import torch
+
+    tt = t.cpu()[:, None]
+    omt = (1.0 - tt).to(torch.float64)
+    runs = 0
+    for i in range(0, starts.shape[0], images):
+        s = starts[i:i + images].cpu().reshape(-1, 1, 2).to(torch.float32)
+        e = ends[i:i + images].cpu().reshape(-1, 1, 2).to(torch.float32)
+        pts = (s.to(torch.float64) * omt + (e * tt).to(torch.float64)).to(torch.float32)
+        pix = torch.round(pts).to(torch.int64)
+        idx = pix[..., 1].clamp(0, h - 1) * w + pix[..., 0].clamp(0, w - 1)
+        runs += int(idx.shape[0] + (idx[:, 1:] != idx[:, :-1]).sum())
+    return {"runs": runs, "segments": starts.shape[0] * starts.shape[1],
+            "one_pixel": int((starts == ends).all(-1).sum())}
 
 
 def rasterize_phase(dev, reports) -> dict:
     """[rasterize]: the fill and segment kernels against their twins at
-    RASTER_ENVS x 256 x 256 (FILL's fill and outline, RAYS' rays), times and
-    bounds; lidar_to_bitmap on the card equal to the CPU's in all three
-    modes -> {"fill_polygon": record, "draw_segments": record}."""
+    RASTER_ENVS x 256 x 256 (FILL's fill and outline, RAYS' rays); the
+    outline's runs and distinct pixels from the twin on the host; times and
+    bounds at RASTER_ENVS images and at one; lidar_to_bitmap on the card
+    equal to the CPU's in all three modes -> {"fill_polygon": record,
+    "draw_segments": record}, each with its one-image times under
+    "one_image"."""
     import torch
 
     from red_gym_tpu_torch.ops import raster_kernels as rk, rasterize
@@ -1948,25 +1984,45 @@ def rasterize_phase(dev, reports) -> dict:
     if not all(same.values()):
         fail(f"rasterize: lidar_to_bitmap on the card differs from the CPU: {same}")
 
-    lims = fill_bound(pts, h, w)
-    say("rasterize", f"fill bound from {lims['crossings']} crossing (row, edge) pairs of "
-        f"{n * h * k}: {lims['bound_ms']:.5f} ms by {lims['bound_by']}")
-    rec_fill = timed("fill_polygon", lambda: rk.fill_polygon(pts, (h, w)),
-                     lambda: rk.fill_polygon_reference(pts, (h, w)),
-                     {key: lims[key] for key in ("bound_ms", "bound_by")},
-                     resources(reports, "fill_polygon"), ("fill_polygon_kernel",))
-    canvas_k = torch.zeros((n, h, w), dtype=torch.uint8, device=dev)
-    canvas_r = torch.zeros_like(canvas_k)
-    samples = n * k * t.numel()
-    draw_lims = bound(nbytes(pts, rolled, t) + n * h * w, f32=float(DRAW_SAMPLE_OPS * samples))
-    rec_draw = timed("draw_segments", lambda: rk.draw_segments(canvas_k, pts, rolled, t),
-                     lambda: rk.draw_segments_reference(canvas_r, pts, rolled, t), draw_lims,
-                     resources(reports, "draw_segments"), ("draw_segments_kernel",))
-    return {"fill_polygon": {"max_abs_err": float((fill_k.int() - fill_r.int()).abs().max()),
-                             "crossings": lims["crossings"], **rec_fill},
-            "draw_segments": {"max_abs_err": float(max(
-                (a.int() - b.int()).abs().max() for a, b in masks.values())),
-                "samples": samples, **rec_draw}}
+    runs = segment_runs(pts, rolled, t, h, w)
+    distinct = masks["outline"][1].reshape(n, -1).sum(1, dtype=torch.int64)
+    say("rasterize", f"outline (twin, on the host): {runs['segments']} segments, "
+        f"{runs['one_pixel']} of one pixel, {runs['segments'] * t.numel()} samples in "
+        f"{runs['runs']} runs of one pixel; distinct pixels an image: mean "
+        f"{float(distinct.float().mean()):.1f}, {int(distinct.sum())} in all")
+    rec = {}
+    for label, m in (("", n), (" one image", 1)):
+        p, r = pts[:m], rolled[:m]
+        lims = fill_bound(p, h, w)
+        say("rasterize", f"fill{label}: bound from {lims['crossings']} crossing (row, edge) "
+            f"pairs of {m * h * k}: {lims['bound_ms']:.5f} ms by {lims['bound_by']}")
+        rec_fill = timed(f"fill_polygon{label}", lambda p=p: rk.fill_polygon(p, (h, w)),
+                         lambda p=p: rk.fill_polygon_reference(p, (h, w)),
+                         {key: lims[key] for key in ("bound_ms", "bound_by")},
+                         resources(reports, "fill_polygon"), ("fill_polygon_kernel",))
+        canvas_k = torch.zeros((m, h, w), dtype=torch.uint8, device=dev)
+        canvas_r = torch.zeros_like(canvas_k)
+        draw_lims = draw_bound(p, r, t, h, w)
+        say("rasterize", f"draw{label}: bound from {draw_lims['samples']} samples of the "
+            f"segments whose endpoints differ: {draw_lims['bound_ms']:.5f} ms by "
+            f"{draw_lims['bound_by']}")
+        rec_draw = timed(f"draw_segments{label}",
+                         lambda p=p, r=r, c=canvas_k: rk.draw_segments(c, p, r, t),
+                         lambda p=p, r=r, c=canvas_r: rk.draw_segments_reference(c, p, r, t),
+                         {key: draw_lims[key] for key in ("bound_ms", "bound_by")},
+                         resources(reports, "draw_segments"), ("draw_segments_kernel",))
+        if label:
+            keep = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+            rec["fill_polygon"]["one_image"] = {key: rec_fill[key] for key in keep}
+            rec["draw_segments"]["one_image"] = {key: rec_draw[key] for key in keep}
+        else:
+            rec["fill_polygon"] = {"crossings": lims["crossings"], **rec_fill}
+            rec["draw_segments"] = {"samples": draw_lims["samples"], **rec_draw, **runs,
+                                    "distinct_pixels": int(distinct.sum())}
+    rec["fill_polygon"]["max_abs_err"] = float((fill_k.int() - fill_r.int()).abs().max())
+    rec["draw_segments"]["max_abs_err"] = float(max(
+        (a.int() - b.int()).abs().max() for a, b in masks.values()))
+    return rec
 
 
 def timed_updates(sac, times: list):
@@ -2175,12 +2231,13 @@ def edt_bound(occ, out) -> dict:
     """The exact EDT's bound on one map: the occupancy read once, D1
     written and read once and the output written once, against the linear
     work of the function (the row pass's EDT_ROW_OPS and a per-column lower
-    envelope's EDT_COL_OPS a pixel, at the float32 rate).  Kernel E's
+    envelope's EDT_COL_OPS a pixel, one lane instruction each at
+    LANE_OPS_PER_S).  Kernel E's
     brute-force column pass does H times that column work; the bound
     counts what the function needs, not what this kernel does."""
     h, w = occ.shape
     moved = nbytes(occ, out) + 2 * 4 * h * w
-    return bound(moved, f32=(EDT_ROW_OPS + EDT_COL_OPS) * h * w)
+    return bound(moved, lane=(EDT_ROW_OPS + EDT_COL_OPS) * h * w)
 
 
 def edt_phase(maps: list, dev, reports) -> dict:
@@ -3006,11 +3063,11 @@ def lidar_bitmap_phase(dev, workdir: str) -> dict:
 
 
 ONLY_PHASES = ("trace_fast", "distributed", "profile_components", "scan_error",
-               "generalization", "mpc_demo", "lidar_bitmap")
+               "generalization", "mpc_demo", "lidar_bitmap", "rasterize")
 
 
-def only_phases(names, dev, ranks: int, workdir: str, kind: str) -> None:
-    """``--only``: the named phases of PR 15 alone, then the last line."""
+def only_phases(names, dev, ranks: int, workdir: str, kind: str, reports: dict) -> None:
+    """``--only``: the named phases alone, then the last line."""
     import torch
 
     from red_gym_tpu_torch import assets, env
@@ -3032,7 +3089,8 @@ def only_phases(names, dev, ranks: int, workdir: str, kind: str) -> None:
               "generalization": lambda: generalization_phase(dev),
               "mpc_demo": lambda: mpc_demo_phase(dev),
               "lidar_bitmap": lambda: lidar_bitmap_phase(
-                  dev, os.path.join(workdir, "lidar_bitmaps"))}
+                  dev, os.path.join(workdir, "lidar_bitmaps")),
+              "rasterize": lambda: rasterize_phase(dev, reports)}
     for name in names:
         if name in phases:
             phases[name]()
@@ -3047,8 +3105,8 @@ def main() -> None:
                     help="also profile 5 steps of the default, eager, bilinear, "
                          "ultra and exact paths")
     ap.add_argument("--only", type=str, default=None,
-                    help="run only these comma-separated phases of PR 15 after the "
-                         f"build: {','.join(ONLY_PHASES)}")
+                    help="run only these comma-separated phases after the build: "
+                         f"{','.join(ONLY_PHASES)}")
     ap.add_argument("--ranks", type=int, default=2,
                     help="ranks of [distributed]'s spawned run (2: sharing cuda:0 over "
                          "gloo on one card; on as many cards: a card each over NCCL)")
@@ -3096,7 +3154,7 @@ def main() -> None:
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
                            "chip_smoke")
     if args.only:
-        only_phases(args.only.split(","), dev, args.ranks, workdir, kind)
+        only_phases(args.only.split(","), dev, args.ranks, workdir, kind, reports)
         return
     cfg = SimConfig(num_agents=AGENTS, num_beams=BEAMS, scan_mode="fast")
     t0 = time.perf_counter()

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Same-card A/B of one of the port's kernels between another checkout of
 this repository and this one, on an NVIDIA GPU: the pre-scan state kernel
-(``--kernel prestep``, the default) or the exact scan's march
-(``--kernel march``).
+(``--kernel prestep``, the default), the exact scan's march
+(``--kernel march``) or the rasterizer's fill and segment draw
+(``--kernel raster``).
 
-    python3 prestep_ab.py OTHER [--kernel prestep|march] [--json PATH]
+    python3 prestep_ab.py OTHER [--kernel prestep|march|raster] [--json PATH]
 
 ``OTHER`` is a checkout of another commit, for example the parent's
 ``git archive`` unpacked under ``_checkout/``.  Each checkout runs in a
@@ -48,6 +49,17 @@ race's 50 x 64 rays:
 - ``env_steps_per_s`` of the ``exact`` and ``multimap_exact`` main paths
   (``chip_smoke.main_path``, 200 steps after 10 warm-up steps).
 
+``--kernel raster``, on the 600 endpoints of the exact scan's scans at
+random free poses of track_0019 (``chip_smoke.raster_points``), each
+operand a call of ``raster_kernels.fill_polygon`` or ``draw_segments``:
+``fill`` and ``outline`` (FILL's fill and closed outline) and ``rays``
+(RAYS' segments from the centre) at 64 x 256 x 256; the same three at
+``one`` image of 256 x 256 and at ``small``, 4 images of 128 x 96:
+
+- ``equal``: the kernel ``torch.equal`` to its twin (``fill_polygon_reference``
+  or ``draw_segments_reference`` on a zero canvas);
+- ``device_ms``, ``window_ms`` and ``launch`` of each, as above.
+
 The last line is one JSON object with every number; ``--json`` also writes
 it to a file.
 """
@@ -63,7 +75,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the device kernel of each A/B, by a part of its name both checkouts share
-DEVICE_NAME = {"prestep": "prestep_kernel", "march": "march_beams"}
+DEVICE_NAME = {"prestep": "prestep_kernel", "march": "march_beams",
+               "fill": "fill_polygon_kernel", "draw": "draw_segments_kernel"}
 EMPTY_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -85,20 +98,21 @@ def launch_shape(fn, out_dir: str, cs, kernel: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     path = os.path.join(out_dir, f"trace-{os.getpid()}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    os.remove(path)
-    for e in events:
-        if e.get("cat") == "kernel" and kernel in e.get("name", ""):
-            a = e["args"]
-            return {"grid": a["grid"], "block": a["block"],
-                    "regs": a.get("registers per thread")}
-    cs.fail(f"no {kernel} record in the profiler's trace")
+    for _ in range(cs.DEVICE_WINDOWS):  # the profiler drops a kernel record now and then
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(path)
+        for e in events:
+            if e.get("cat") == "kernel" and kernel in e.get("name", ""):
+                a = e["args"]
+                return {"grid": a["grid"], "block": a["block"],
+                        "regs": a.get("registers per thread")}
+    cs.fail(f"no {kernel} record in {cs.DEVICE_WINDOWS} profiler traces")
 
 
 def this_chip_smoke(root: str):
@@ -247,7 +261,46 @@ def measure_march(root: str) -> dict:
     return res
 
 
-MEASURE = {"prestep": measure_prestep, "march": measure_march}
+def measure_raster(root: str) -> dict:
+    """Every number of the rasterizer's A/B of the checkout at ``root``,
+    with its own package."""
+    cs = this_chip_smoke(root)
+    import torch
+
+    from red_gym_tpu_torch.ops import _build, raster_kernels as rk, rasterize
+
+    if not os.path.abspath(rk.__file__).startswith(os.path.abspath(root)):
+        cs.fail(f"imported {rk.__file__}, not the one under {root}")
+    dev = torch.device("cuda", 0)
+    scans, pts = cs.raster_points(dev)
+    small = rasterize.beam_endpoints(scans[:4], 600, (128, 96), 10.0)
+    t = rk.segment_t(dev)
+    res = {"equal": {}, "device_ms": {}, "window_ms": {}, "launch": {}}
+    for shape, p, dims in (("", pts, (256, 256)), ("one/", pts[:1], (256, 256)),
+                           ("small/", small, (128, 96))):
+        center = torch.tensor([dims[0] // 2, dims[1] // 2], dtype=torch.int32,
+                              device=dev).expand_as(p)
+        canvas = torch.zeros((p.shape[0], *dims), dtype=torch.uint8, device=dev)
+        ops = {"fill": ("fill", lambda p=p, dims=dims: rk.fill_polygon(p, dims),
+                        lambda p=p, dims=dims: rk.fill_polygon_reference(p, dims))}
+        for label, starts, ends in (("outline", p, torch.roll(p, -1, dims=-2)),
+                                    ("rays", center, p)):
+            ops[label] = ("draw",
+                          lambda s=starts, e=ends, c=canvas: rk.draw_segments(c, s, e, t),
+                          lambda s=starts, e=ends, c=canvas: rk.draw_segments_reference(
+                              torch.zeros_like(c), s, e, t))
+        for label, (kind, kernel, twin) in ops.items():
+            name = shape + label
+            if kind == "draw":
+                canvas.zero_()
+            res["equal"][name] = bool(torch.equal(kernel(), twin()))
+            res["device_ms"][name] = cs.device_ms(kernel, (DEVICE_NAME[kind],))["total"]
+            res["window_ms"][name] = cs.median_ms(kernel, cs.TIMING_REPS)
+            res["launch"][name] = launch_shape(kernel, _build.BUILD_DIR, cs, DEVICE_NAME[kind])
+    return res
+
+
+MEASURE = {"prestep": measure_prestep, "march": measure_march, "raster": measure_raster}
 
 
 def floors(shapes: dict, cs) -> dict:

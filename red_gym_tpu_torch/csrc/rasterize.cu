@@ -2,119 +2,325 @@
 // line-segment draw of lidar_to_bitmap.
 //
 // Replaces no Pallas kernel: the JAX package rasterizes with one broadcast
-// that XLA fuses, red_gym_tpu/ops/rasterize.py:43-82 (_fill_polygon: a
+// that XLA fuses, red_gym_tpu/ops/rasterize.py:43 (_fill_polygon: a
 // crossing-number test of every pixel against every polygon edge, an
-// (H, W, K) = 256 x 256 x 600 array an image; _draw_segments: 448 samples a
-// segment scattered into the mask).  The plain PyTorch versions this kernel
-// is held against (torch.equal on the card) are in
+// (H, W, K) = 256 x 256 x 600 array an image) and :67 (_draw_segments: 448
+// samples a segment scattered into the mask).  The plain PyTorch versions
+// these kernels are held against (torch.equal on the card) are in
 // red_gym_tpu_torch/ops/raster_kernels.py (fill_polygon_reference,
 // draw_segments_reference).
 //
-// fill_polygon_kernel: one block a (pixel row, image).  The crossing test of
-// pixel (px, py) against edge (x1, y1) -> (x2, y2) is
-//     cond = (y1 > py) != (y2 > py),  x_int = (x2 - x1) * (py - y1) / denom + x1,
-//     crossing = cond & (px < x_int)
-// and the pixel is inside where the count of crossings is odd.  cond and
-// x_int do not depend on px, so the block computes them once a row, K
-// divisions instead of K x W, and keeps only the x_int of edges whose cond
-// holds (a handful a row: the polygon's boundary crosses a row a few times)
-// in shared memory, appended through a shared counter.  Leaving out the
-// edges whose cond is false is exact, since their crossing is false at
-// every px, and the order of the list does not change the count.  Then each
-// thread counts px < x_int over the list for its pixels; every lane of a
-// warp reads the same shared word.
+// fill_polygon_kernel.  Pixel (px, py) is inside where the edges (x1, y1) ->
+// (x2, y2) with (y1 > py) != (y2 > py) and px < x_int, x_int = (x2 - x1) *
+// (py - y1) / denom + x1, are odd in number.  A block covers a band of rows
+// (and a tile of at most 8192 columns) of one image.  Its threads load 4
+// edges each at once; an edge crosses the rows [min(y1, y2), max(y1, y2))
+// (the y's are integers), and for each such row of the band x_int is
+// computed with the twin's sequence of operations.  The pixels left of a
+// crossing are a prefix of the row, px < ceil(x_int) (where pixel indices
+// are exact floats; first_not_below_wide past 2^24), so a crossing toggles
+// one bit of the row's difference bits in shared memory (atomicXor), and
+// the parity of the bits above a pixel says whether it is inside: a warp a
+// row takes 8 pixels a lane, a suffix XOR over the lanes (__shfl_down_sync)
+// and within each lane's byte, and writes them with one 8-byte store.  Order
+// does not change a parity, so the result is bit-equal to the twin.
 //
-// draw_segments_kernel: one thread a (segment, sample).  The sample point is
-// s * (1 - t) + e * t with the 448-entry t table of the caller, rounded as
-// XLA's CPU code rounds it, fma(s, 1 - t, e * t) (one rounding of the first
-// product and the sum), then rint (half to even), clip to the canvas and a
-// byte store of 1 into the mask.  Stores that land on one pixel write the
-// same value, so their order does not matter.
+// draw_segments_kernel.  The sample point is s * (1 - t) + e * t with the
+// caller's t table, rounded as XLA's CPU code rounds it, fma(s, 1 - t, e * t)
+// (one rounding of the first product and the sum), then rint (half to
+// even), clip to the canvas, and a 1 stored there in place.  A warp draws a
+// segment 32 consecutive samples at a time, lane l sample 32 * it + l, and a
+// lane stores its pixel only where it differs from the sample before it,
+// lane l - 1's or, for lane 0, lane 31's of the iteration before (the run
+// test, one __shfl_sync).  At segment_t's 448 samples a warp holds its
+// lanes' 14 t's in registers and computes a segment's 14 pixels before
+// their run tests; where one warp a segment would leave the card short of
+// blocks (few images) the iterations are split into pieces on blockIdx.z.
+// On canvases under 2^24 pixels the pixel is kept as a float index: clip,
+// then rint by adding and subtracting 1.5 * 2^23 (exact below 2^22), no
+// float-to-int conversion a sample.  A segment whose endpoints are one pixel
+// (s == e) stores that pixel once: every sample of fma(s, 1 - t, s * t)
+// rounds back to s, which the wrapper allows only for segment_t's table and
+// coordinates of magnitude at most ZERO_LENGTH_MAX, where
+// tests/test_torch_rasterize.py checks it for every t; elsewhere every
+// sample is evaluated.  Every store writes 1, so their order does not matter.
 //
 // Rounding.  Built with -fmad=false (ops/_build.py), and the arithmetic is
 // written with the _rn intrinsics: every operation rounds on its own, with
 // IEEE division, as the one-kernel-per-operator PyTorch twins round it; the
-// one fused multiply-add is explicit.  So kernel and twin agree bit for bit.
+// one fused multiply-add is explicit.  So kernels and twins agree bit for
+// bit.
 //
-// What bounds it on the H100.  At 64 images x 256 x 256 pixels and K = 600
-// edges the fill reads 0.3 MB of points and writes 4.2 MB of mask (1.3 us
-// at the memory rate); its operations, counted on 64 polygons of the exact
-// scan on track_0019 (28,560 crossing (row, edge) pairs, under 2 a row), are
-// 3 a (row, edge), 7 a crossing edge and 2 a (pixel, crossing edge), about
-// 44 M or 0.7 us at the float32 rate: bytes bound it.  The segment draw
-// makes 17.2 M samples of about 15 operations (3.9 us).  Both take far
-// longer than that (0.027 and 0.079 ms on an H100 80GB HBM3 at 700 W,
-// PERF.md): the fill's 16,384 blocks each pass a barrier between a short
-// edge pass and a short pixel pass, and the draw issues 17.2 M scattered
-// byte stores, most onto pixels set already.  Both are a few of a planning
-// step's 2,270 device operations, so the simple form stays for now.
+// What bounds them on the H100, at 64 images x 256 x 256 and K = 600 (the
+// exact scan on track_0019).  The fill reads 0.3 MB of points and writes 4.2
+// MB of mask, 1.3 us at the memory rate; its least work, a few operations
+// an edge and a crossing and one a pixel, is far less, so bytes bound it.
+// The draw's least work is the samples of the segments whose endpoints
+// differ (a third are one pixel), about 11.5 M of 12 lane instructions, 4
+// us at the lane rate.  The earlier forms (a block a pixel row, each reading
+// all 600 points; a thread a sample and 17.2 M scattered byte stores, most
+// onto pixels set already) took 0.027 and 0.079 ms; these take 0.0106 and
+// 0.0197 ms, and at one image 0.0024 and 0.0022 ms (device time,
+// prestep_ab.py --kernel raster, H100 80GB HBM3 at 700 W; PERF.md section
+// 6, rows R and R-d, with the forms tried on the way).
 
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
 
-constexpr int FILL_THREADS = 256;
-constexpr int DRAW_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARP = 32;
+constexpr int FILL_WARPS = 8;
+constexpr int DRAW_WARPS = 4;
+// blocks a launch aims at: 8 on each of an H100's 132 SMs
+constexpr int TARGET_BLOCKS = 132 * 8;
+constexpr int FILL_BAND = 16;               // rows a fill block at most
+constexpr int FILL_EDGES = 4;               // edges a fill thread loads at once
+constexpr int FILL_TILE = 8192;             // columns a fill block at most
+constexpr int DRAW_ITERS = 14;              // segment_t's 448 samples in iterations of 32
+constexpr float RINT_MAGIC = 12582912.0f;   // 1.5 * 2^23: v + it rounds v to an integer
+constexpr float EXACT_INTS = 16777216.0f;   // 2^24: every integer up to it is a float
 
-__global__ void __launch_bounds__(FILL_THREADS)
-fill_polygon_kernel(const int* __restrict__ pts, int k, int h, int w,
+// The first pixel px of a row with float(px) >= x (x >= 2^24), so that
+// px < x, as the twin compares them (pixel indices as float32), holds for
+// the pixels before it: the integers between the float below x and x round
+// to the nearer of the two, a tie to the one of even mantissa.
+__device__ __noinline__ int64_t first_not_below_wide(float x) {
+  if (x >= 2147483648.0f) return int64_t{1} << 31;   // past every row
+  const int64_t hi = static_cast<int64_t>(x);
+  const int64_t lo = static_cast<int64_t>(nextafterf(x, 0.0f));
+  const int64_t mid2 = lo + hi;
+  const bool even = (__float_as_uint(x) & 1u) == 0;
+  return mid2 / 2 + ((mid2 % 2 != 0 || !even) ? 1 : 0);
+}
+
+__global__ void __launch_bounds__(FILL_WARPS * WARP)
+fill_polygon_kernel(const int2* __restrict__ pts, int k, int h, int w, int band,
                     unsigned char* __restrict__ mask) {
-  extern __shared__ float x_cross[];
-  __shared__ int n_cross;
-  const int row = blockIdx.x;
+  // block (x, y, z): rows [row0, row0 + rows) of image y, columns
+  // [col0, col0 + cols); each row's crossings as difference bits: bit q
+  // toggles the pixels col0 + i, i < q, bit cols every pixel of the tile
+  extern __shared__ unsigned diff[];
   const int img = blockIdx.y;
-  const int* p = pts + static_cast<size_t>(img) * k * 2;
-  if (threadIdx.x == 0) n_cross = 0;
-  __syncthreads();
-  const float py = static_cast<float>(row);
-  for (int e = threadIdx.x; e < k; e += blockDim.x) {
-    const int e2 = (e + 1 == k) ? 0 : e + 1;
-    const float x1 = __int2float_rn(p[2 * e]);
-    const float y1 = __int2float_rn(p[2 * e + 1]);
-    const float x2 = __int2float_rn(p[2 * e2]);
-    const float y2 = __int2float_rn(p[2 * e2 + 1]);
-    if ((y1 > py) != (y2 > py)) {
-      const float denom = (y2 == y1) ? 1.0f : __fsub_rn(y2, y1);
-      const float prod = __fmul_rn(__fsub_rn(x2, x1), __fsub_rn(py, y1));
-      const float xi = __fadd_rn(__fdiv_rn(prod, denom), x1);
-      x_cross[atomicAdd(&n_cross, 1)] = xi;
+  const int row0 = static_cast<int>(blockIdx.x) * band;
+  const int rows = min(band, h - row0);
+  const int64_t col0 = static_cast<int64_t>(blockIdx.z) * FILL_TILE;
+  const int cols = static_cast<int>(min(static_cast<int64_t>(FILL_TILE), w - col0));
+  const int words = cols / 32 + 1;
+  const int2* p = pts + static_cast<size_t>(img) * k;
+  for (int i = threadIdx.x; i < rows * words; i += blockDim.x) diff[i] = 0;
+  const float first = static_cast<float>(row0);
+  const float last = static_cast<float>(row0 + rows);
+  // edge pass: FILL_EDGES edges a thread at a time, all their points loading
+  // at once; each crossing of a row of the band toggles one difference bit
+  for (int e0 = 0; e0 < k; e0 += FILL_EDGES * blockDim.x) {
+    int2 pa[FILL_EDGES], pb[FILL_EDGES];
+#pragma unroll
+    for (int u = 0; u < FILL_EDGES; ++u) {
+      const int e = e0 + u * blockDim.x + threadIdx.x;
+      if (e < k) {
+        pa[u] = p[e];
+        pb[u] = p[e + 1 == k ? 0 : e + 1];
+      }
+    }
+    if (e0 == 0) __syncthreads();   // the bits are zero
+#pragma unroll
+    for (int u = 0; u < FILL_EDGES; ++u) {
+      if (e0 + u * blockDim.x + threadIdx.x >= k) break;
+      const float2 a = make_float2(__int2float_rn(pa[u].x), __int2float_rn(pa[u].y));
+      const float2 b = make_float2(__int2float_rn(pb[u].x), __int2float_rn(pb[u].y));
+      // the rows py where (y1 > py) != (y2 > py) are the integers in
+      // [min(y1, y2), max(y1, y2)): the y's are integers, as floats
+      const float ylo = fminf(a.y, b.y), yhi = fmaxf(a.y, b.y);
+      if (!(yhi > first && ylo < last)) continue;
+      const int r1 = static_cast<int>(fminf(yhi, last)) - row0;
+      for (int r = static_cast<int>(fmaxf(ylo, first)) - row0; r < r1; ++r) {
+        const float py = static_cast<float>(row0 + r);
+        if ((a.y > py) == (b.y > py)) continue;
+        const float denom = (b.y == a.y) ? 1.0f : __fsub_rn(b.y, a.y);
+        const float prod = __fmul_rn(__fsub_rn(b.x, a.x), __fsub_rn(py, a.y));
+        // 0 / denom + x1 is x1: the division (its slow path for a 0) is left out
+        const float xi = prod == 0.0f ? a.x : __fadd_rn(__fdiv_rn(prod, denom), a.x);
+        // the pixels px < xi: px < ceil(xi) where pixel indices are exact floats
+        const float c = ceilf(xi);
+        if (c <= 0.0f) continue;
+        const int64_t q = (c < EXACT_INTS ? static_cast<int64_t>(static_cast<int>(c))
+                                          : first_not_below_wide(xi)) - col0;
+        if (q <= 0) continue;   // no pixel of the tile left of the crossing
+        const int bit = q < cols ? static_cast<int>(q) : cols;
+        atomicXor(&diff[r * words + bit / 32], 1u << (bit % 32));
+      }
     }
   }
   __syncthreads();
-  const int n = n_cross;
-  unsigned char* out = mask + (static_cast<size_t>(img) * h + row) * w;
-  for (int px = threadIdx.x; px < w; px += blockDim.x) {
-    const float fx = static_cast<float>(px);
-    int c = 0;
-    for (int j = 0; j < n; ++j) c += fx < x_cross[j];
-    out[px] = static_cast<unsigned char>(c & 1);
+  // pixel pass: a warp a row, a lane 8 consecutive pixels of each 256, from
+  // the tile's end: a pixel is inside where the bits above it are odd
+  const int lane = threadIdx.x % WARP;
+  for (int r = threadIdx.x / WARP; r < rows; r += blockDim.x / WARP) {
+    const unsigned* d = diff + r * words;
+    unsigned carry = (d[cols / 32] >> (cols % 32)) & 1u;   // the bits right of this pass
+    unsigned char* out = mask + (static_cast<size_t>(img) * h + row0 + r) * w + col0;
+    for (int x0 = (cols - 1) / 256 * 256; x0 >= 0; x0 -= 256) {
+      const int px = x0 + 8 * lane;
+      unsigned b = 0;   // the bits of this lane's 8 pixels
+      if (px < cols) {
+        b = (d[px / 32] >> (px % 32)) & 0xffu;
+        if (cols - px < 8) b &= (1u << (cols - px)) - 1u;
+      }
+      const unsigned own = __popc(b) & 1u;
+      unsigned odd = own;   // then: of this lane's bits and those of the lanes after it
+#pragma unroll
+      for (int off = 1; off < WARP; off *= 2) {
+        const unsigned o = __shfl_down_sync(FULL, odd, off);
+        if (lane + off < WARP) odd ^= o;
+      }
+      unsigned s = b;   // bit i: the parity of bits i..7
+      s ^= s >> 1;
+      s ^= s >> 2;
+      s ^= s >> 4;
+      const unsigned inside = ((s >> 1) ^ ((odd ^ own ^ carry) ? 0xffu : 0u)) & 0xffu;
+      if (w % 8 == 0 && px < cols) {   // rows and tiles start 8-byte aligned
+        const unsigned lo = ((inside & 0xfu) * 0x00204081u) & 0x01010101u;
+        const unsigned hi = ((inside >> 4) * 0x00204081u) & 0x01010101u;
+        *reinterpret_cast<unsigned long long*>(out + px) =
+            lo | (static_cast<unsigned long long>(hi) << 32);
+      } else {
+        for (int i = 0; i < 8 && px + i < cols; ++i)
+          out[px + i] = static_cast<unsigned char>((inside >> i) & 1u);
+      }
+      carry ^= __shfl_sync(FULL, odd, 0);
+    }
   }
 }
 
-__global__ void __launch_bounds__(DRAW_THREADS)
-draw_segments_kernel(const int* __restrict__ starts, const int* __restrict__ ends,
-                     int64_t total, int samples, int seg_per_img,
-                     const float* __restrict__ t, int h, int w,
-                     unsigned char* __restrict__ mask) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int64_t seg = i / samples;
-  const int j = static_cast<int>(i - seg * samples);
-  const int64_t img = seg / seg_per_img;
-  const float tt = t[j];
-  const float omt = __fsub_rn(1.0f, tt);
-  int pix[2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const float s = __int2float_rn(starts[2 * seg + c]);
-    const float e = __int2float_rn(ends[2 * seg + c]);
-    pix[c] = __float2int_rn(__fmaf_rn(s, omt, __fmul_rn(e, tt)));
+// The pixel of the sample at t of segment (sx, sy) -> (ex, ey), rounded as
+// the twin rounds it (fma(s, 1 - t, e * t), then rint),
+// clipped to the canvas, as a key that is equal for equal pixels: its index
+// y * w + x, a float in the SMALL form (h * w < 2^24 and h, w <= 2^22:
+// clipping before rint gives the same pixel, rint of a value in [0, 2^22] is
+// exact by RINT_MAGIC, and the index is an exact float), else an int64.
+template <bool SMALL>
+struct Key {
+  using type = typename std::conditional<SMALL, float, int64_t>::type;
+  static constexpr type NONE = -1;
+
+  __device__ __forceinline__ static type at(float sx, float sy, float ex, float ey, float t,
+                                            int h, int w) {
+    const float omt = __fsub_rn(1.0f, t);
+    const float vx = __fmaf_rn(sx, omt, __fmul_rn(ex, t));
+    const float vy = __fmaf_rn(sy, omt, __fmul_rn(ey, t));
+    if constexpr (SMALL) {
+      const float x = __fsub_rn(__fadd_rn(fminf(fmaxf(vx, 0.0f), w - 1.0f), RINT_MAGIC),
+                                RINT_MAGIC);
+      const float y = __fsub_rn(__fadd_rn(fminf(fmaxf(vy, 0.0f), h - 1.0f), RINT_MAGIC),
+                                RINT_MAGIC);
+      return __fadd_rn(__fmul_rn(y, static_cast<float>(w)), x);
+    } else {
+      const int x = min(max(__float2int_rn(vx), 0), w - 1);
+      const int y = min(max(__float2int_rn(vy), 0), h - 1);
+      return static_cast<int64_t>(y) * w + x;
+    }
   }
-  const int x = min(max(pix[0], 0), w - 1);
-  const int y = min(max(pix[1], 0), h - 1);
-  mask[(img * h + y) * w + x] = 1;
+};
+
+// The run test of one iteration: the lane's key against the sample before
+// it, lane l - 1's, for lane 0 `prev` of lane 31 (the iteration before),
+// passed in one __shfl_sync; a 1 stored where they differ.
+template <class KeyT>
+__device__ __forceinline__ void store_run(KeyT key, KeyT prev, bool valid, int lane,
+                                          unsigned char* __restrict__ out) {
+  const KeyT before = __shfl_sync(FULL, lane == WARP - 1 ? prev : key, (lane + WARP - 1) % WARP);
+  if (valid && key != before) out[static_cast<int64_t>(key)] = 1;
+}
+
+// Block (x, y, z) draws piece z (`chunk` iterations of 32 consecutive
+// samples, lane l sample 32 * it + l) of the segments of slice y (`slice`
+// segments) of image x, a warp a segment at a time; the next segment's
+// endpoints load while one is drawn.  ITERS > 0: whole segments of ITERS
+// iterations, t of the lane's samples held in registers and all ITERS keys
+// computed before their run tests (ILP); else pieces of any length.
+template <bool SMALL, int ITERS>
+__global__ void __launch_bounds__(DRAW_WARPS * WARP, ITERS > 0 ? 4 : 8)
+draw_segments_kernel(const int2* __restrict__ starts, const int2* __restrict__ ends, int k,
+                     int slice, int chunk, const float* __restrict__ t, int samples,
+                     int zero_max, int h, int w, unsigned char* __restrict__ mask) {
+  using K = Key<SMALL>;
+  using KeyT = typename K::type;
+  const int64_t img = blockIdx.x;
+  const int s0 = static_cast<int>(blockIdx.y) * slice;
+  const int s1 = min(k, s0 + slice);
+  const int lane = threadIdx.x % WARP;
+  const int iters = (samples + WARP - 1) / WARP;
+  const int it0 = static_cast<int>(blockIdx.z) * chunk;
+  const int it1 = min(iters, it0 + chunk);
+  unsigned char* out = mask + img * (static_cast<int64_t>(h) * w);
+  // t of this lane's samples: all of them, or the piece's first
+  float tr[ITERS > 0 ? ITERS : 1];
+  if constexpr (ITERS > 0) {
+#pragma unroll
+    for (int i = 0; i < ITERS; ++i) tr[i] = __ldg(t + min(i * WARP + lane, samples - 1));
+  } else {
+    tr[0] = __ldg(t + min(it0 * WARP + lane, samples - 1));
+  }
+  const int2* sp = starts + static_cast<size_t>(img) * k;
+  const int2* ep = ends + static_cast<size_t>(img) * k;
+  int seg = s0 + static_cast<int>(threadIdx.x) / WARP;
+  int2 a = make_int2(0, 0), b = make_int2(0, 0);
+  if (seg < s1) {
+    a = sp[seg];
+    b = ep[seg];
+  }
+  for (; seg < s1; seg += DRAW_WARPS) {
+    int2 na = a, nb = b;
+    if (seg + DRAW_WARPS < s1) {
+      na = sp[seg + DRAW_WARPS];
+      nb = ep[seg + DRAW_WARPS];
+    }
+    if (a.x == b.x && a.y == b.y && a.x >= -zero_max && a.x <= zero_max &&
+        a.y >= -zero_max && a.y <= zero_max) {
+      if (blockIdx.z == 0 && lane == 0)
+        out[static_cast<int64_t>(min(max(a.y, 0), h - 1)) * w + min(max(a.x, 0), w - 1)] = 1;
+    } else if (it0 < it1) {
+      const float sx = __int2float_rn(a.x), sy = __int2float_rn(a.y);
+      const float ex = __int2float_rn(b.x), ey = __int2float_rn(b.y);
+      if constexpr (ITERS > 0) {
+        KeyT key[ITERS];
+#pragma unroll
+        for (int i = 0; i < ITERS; ++i) key[i] = K::at(sx, sy, ex, ey, tr[i], h, w);
+#pragma unroll
+        for (int i = 0; i < ITERS; ++i)
+          store_run(key[i], i > 0 ? key[i - 1] : K::NONE, i * WARP + lane < samples, lane, out);
+      } else {
+        KeyT prev = K::NONE;   // a piece stores its first pixel
+        for (int it = it0; it < it1; ++it) {
+          const float tt = it == it0 ? tr[0] : __ldg(t + min(it * WARP + lane, samples - 1));
+          const KeyT key = K::at(sx, sy, ex, ey, tt, h, w);
+          store_run(key, prev, it * WARP + lane < samples, lane, out);
+          prev = key;
+        }
+      }
+    }
+    a = na;
+    b = nb;
+  }
+}
+
+template <bool SMALL>
+void launch_draw(dim3 grid, cudaStream_t stream, const int2* s, const int2* e, int k, int slice,
+                 int chunk, const float* t, int samples, int zero_max, int h, int w,
+                 unsigned char* mask) {
+  if (grid.z == 1 && (samples + WARP - 1) / WARP == DRAW_ITERS) {
+    draw_segments_kernel<SMALL, DRAW_ITERS><<<grid, DRAW_WARPS * WARP, 0, stream>>>(
+        s, e, k, slice, chunk, t, samples, zero_max, h, w, mask);
+  } else {
+    draw_segments_kernel<SMALL, 0><<<grid, DRAW_WARPS * WARP, 0, stream>>>(
+        s, e, k, slice, chunk, t, samples, zero_max, h, w, mask);
+  }
 }
 
 }  // namespace
@@ -122,24 +328,48 @@ draw_segments_kernel(const int* __restrict__ starts, const int* __restrict__ end
 extern "C" {
 
 // points (n, k, 2) int32 (x, y), contiguous -> mask (n, h, w) uint8, every
-// pixel written (1 inside the polygon, else 0).  Returns the CUDA error.
+// pixel written (1 inside the polygon, else 0); n <= 65535.  Returns the
+// CUDA error.
 int fill_polygon_launch(const int* points, int n, int k, int h, int w,
                         unsigned char* mask, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(k) * sizeof(float);
-  fill_polygon_kernel<<<dim3(h, n), FILL_THREADS, smem, stream>>>(points, k, h, w, mask);
+  // rows a block: enough for about TARGET_BLOCKS blocks, at most FILL_BAND
+  const int64_t rows = static_cast<int64_t>(n) * h;
+  const int band = static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(
+      FILL_BAND, (rows + TARGET_BLOCKS - 1) / TARGET_BLOCKS)));
+  // the band's difference bits: at most FILL_BAND x 257 words, 16 KB
+  const size_t smem = band * (std::min(FILL_TILE, w) / 32 + 1) * sizeof(unsigned);
+  const dim3 grid((h + band - 1) / band, n, static_cast<unsigned>((w + FILL_TILE - 1) / FILL_TILE));
+  fill_polygon_kernel<<<grid, FILL_WARPS * WARP, smem, stream>>>(
+      reinterpret_cast<const int2*>(points), k, h, w, band, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-// starts, ends (m, 2) int32, contiguous, segment i of image i / seg_per_img;
-// t (samples,) float32 -> a 1 stored into mask (n, h, w) at every sample's
-// pixel.  Returns the CUDA error.
-int draw_segments_launch(const int* starts, const int* ends, int64_t m, int seg_per_img,
-                         const float* t, int samples, int h, int w, unsigned char* mask,
+// starts, ends (n, k, 2) int32, contiguous; t (samples,) float32 -> a 1
+// stored into mask (n, h, w) at every sample's pixel.  zero_max: the
+// largest coordinate magnitude of a one-pixel segment drawn as that pixel
+// alone, or -1 for none.  Returns the CUDA error.
+int draw_segments_launch(const int* starts, const int* ends, int n, int k, const float* t,
+                         int samples, int zero_max, int h, int w, unsigned char* mask,
                          cudaStream_t stream) {
-  const int64_t total = m * samples;
-  const int64_t blocks = (total + DRAW_THREADS - 1) / DRAW_THREADS;
-  draw_segments_kernel<<<static_cast<unsigned>(blocks), DRAW_THREADS, 0, stream>>>(
-      starts, ends, total, samples, seg_per_img, t, h, w, mask);
+  const int64_t segments = static_cast<int64_t>(n) * k;
+  if (segments == 0 || samples == 0) return 0;
+  // a warp a segment; the segment's samples in pieces, grid.z of them, where
+  // that leaves the card short of TARGET_BLOCKS blocks of DRAW_WARPS warps
+  const int iters = (samples + WARP - 1) / WARP;
+  const int pieces = static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(
+      std::min(iters, 65535), int64_t{TARGET_BLOCKS} * DRAW_WARPS / segments)));
+  const int blocks_per_img = std::min((k + DRAW_WARPS - 1) / DRAW_WARPS,
+                                      std::max(1, TARGET_BLOCKS / (n * pieces)));
+  const int slice = (k + blocks_per_img - 1) / blocks_per_img;
+  const int chunk = (iters + pieces - 1) / pieces;
+  const dim3 grid(static_cast<unsigned>(n), (k + slice - 1) / slice, (iters + chunk - 1) / chunk);
+  const auto* s = reinterpret_cast<const int2*>(starts);
+  const auto* e = reinterpret_cast<const int2*>(ends);
+  if (static_cast<int64_t>(h) * w < (int64_t{1} << 24) && h <= (1 << 22) && w <= (1 << 22)) {
+    launch_draw<true>(grid, stream, s, e, k, slice, chunk, t, samples, zero_max, h, w, mask);
+  } else {
+    launch_draw<false>(grid, stream, s, e, k, slice, chunk, t, samples, zero_max, h, w, mask);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,15 +37,27 @@ from red_gym_tpu_torch.ops import _build
 SEGMENT_SAMPLES = 448
 # the twins' largest boolean intermediate, in elements: about 64 MB each
 _TWIN_ELEMS = 1 << 26
-_MAX_SHARED_EDGES = 12 * 1024  # the fill kernel keeps K floats in 48 KB of shared memory
+# the draw kernel stores a one-pixel segment (start == end) as that pixel
+# alone, without its samples, where its coordinates lie within this
+# magnitude and t is segment_t's table: tests/test_torch_rasterize.py checks
+# that every sample rounds back to the pixel there
+ZERO_LENGTH_MAX = 4096
 
 
-@functools.lru_cache(maxsize=None)
-def segment_t(device: torch.device) -> torch.Tensor:
+def segment_t(device) -> torch.Tensor:
     """The draw's SEGMENT_SAMPLES sample positions on ``device``,
     ``jnp.linspace(0, 1, 448, float32)`` exactly: i * float32(1 / 447), the
     last one 1.  (torch.linspace and a float64 table cast to float32 each
-    differ from it in some entries.)"""
+    differ from it in some entries.)  One tensor a device: "cuda" names the
+    current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _segment_t(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _segment_t(device: torch.device) -> torch.Tensor:
     n = SEGMENT_SAMPLES
     t = np.arange(n, dtype=np.float32) * np.float32(1.0 / (n - 1))
     t[-1] = 1.0
@@ -120,10 +132,10 @@ def draw_segments_reference(mask, starts, ends, t, max_elems: int = _TWIN_ELEMS)
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("rasterize")
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.fill_polygon_launch.argtypes = [p, i, i, i, i, p, p]
     lib.fill_polygon_launch.restype = ctypes.c_int
-    lib.draw_segments_launch.argtypes = [p, p, i64, i, p, i, i, i, p, p]
+    lib.draw_segments_launch.argtypes = [p, p, i, i, p, i, i, i, i, p, p]
     lib.draw_segments_launch.restype = ctypes.c_int
     return lib
 
@@ -143,9 +155,8 @@ def fill_polygon(points, out_dims):
         raise ValueError(f"fill_polygon runs on cuda or cpu, not {points.device}")
     h, w = out_dims
     n, k = points.shape[:2]
-    if k > _MAX_SHARED_EDGES or n > 65535:
-        raise ValueError(f"the fill kernel takes at most {_MAX_SHARED_EDGES} edges and "
-                         f"65535 images, got {k} and {n}")
+    if n > 65535:
+        raise ValueError(f"the fill kernel takes at most 65535 images, got {n}")
     out = torch.empty((n, h, w), dtype=torch.uint8, device=points.device)
     if out.numel() == 0 or k == 0:
         return out.zero_()
@@ -187,10 +198,13 @@ def draw_segments(mask, starts, ends, t):
     if n * k == 0 or mask.numel() == 0:
         return mask
     h, w = mask.shape[-2:]
+    canonical = (t.numel() == SEGMENT_SAMPLES and t.is_contiguous()
+                 and t.data_ptr() == segment_t(t.device).data_ptr())
     starts, ends, t = starts.contiguous(), ends.contiguous(), t.contiguous()
-    err = _lib().draw_segments_launch(starts.data_ptr(), ends.data_ptr(), n * k, k,
-                                      t.data_ptr(), t.numel(), h, w, mask.data_ptr(),
-                                      _stream(mask))
+    err = _lib().draw_segments_launch(starts.data_ptr(), ends.data_ptr(), n, k,
+                                      t.data_ptr(), t.numel(),
+                                      ZERO_LENGTH_MAX if canonical else -1, h, w,
+                                      mask.data_ptr(), _stream(mask))
     if err != 0:
         raise RuntimeError(f"draw_segments kernel launch failed: CUDA error {err}")
     draw_segments.launches += 1

@@ -28,7 +28,16 @@ each map alone, and multi-map resets and steps on the GPU against the CPU
 in the default, bilinear, ultra and exact modes.  ``vec_env.VecF110Env`` in
 the library-default fast scan: the megakernel with opponents and the state
 kernel launched once a step and once a reset step, and every output
-torch.equal to a hand loop of ``env.step`` + ``rollout.reset_done``.
+torch.equal to a hand loop of ``env.step`` + ``rollout.reset_done``.  The
+rasterizer's fill and segment draw (csrc/rasterize.cu) torch.equal to
+their twins on fuzzed scans and on edge cases: a zigzag polygon whose
+edges span the canvas, one-pixel segments (inside and past the draw's
+shortcut, and with a t table that is not segment_t's tensor), segments off
+the canvas, K = 1, 2, 12,288 and 20,000, canvases of 128 x 96,
+257 x 129, 520 x 520, 1 x (2^22 + 96) (the draw's integer form), 4 x
+20000 (three of the fill's column tiles) and 2 x (2^24 + 4000) (pixel
+indices that float32 rounds), one
+image, a mask already holding 1s, and t tables of 1000 and 430 samples.
 """
 
 import dataclasses
@@ -1357,6 +1366,96 @@ def test_raster_kernels_equal_their_twins(n, beams):
         assert torch.equal(mk, mr)
     assert (rk.fill_polygon.launches, rk.draw_segments.launches) == (before[0] + 1,
                                                                      before[1] + 2)
+
+
+def _raster_case(name):
+    """(points (n, k, 2) int32 of the fill, segment starts and ends of the
+    draw, (h, w), the mask the draw starts from, t) of one edge case of the
+    rasterizer's kernels, on the card."""
+    from red_gym_tpu_torch.ops import raster_kernels as rk
+
+    gen = torch.Generator(device="cuda").manual_seed(sum(map(ord, name)))
+    dims, t, base = (256, 256), rk.segment_t(torch.device("cuda", 0)), None
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+
+    if name == "zigzag":   # 600 edges, each spanning the whole canvas and beyond
+        k = torch.arange(600, device="cuda")
+        pts = torch.stack([k * 256 // 600, torch.where(k % 2 == 0, -3, 259)], -1)
+        pts = pts.to(torch.int32)[None]
+    elif name == "zero_length":   # also past the one-pixel shortcut's range
+        pts = ints(-300, 300, (3, 500, 2))
+        pts[0, :40] = ints(-9000, 9000, (40, 2))
+        return pts, pts, pts.clone(), dims, base, t
+    elif name == "zero_length_other_t":   # segment_t's values, not its tensor
+        pts = ints(-300, 300, (2, 500, 2))
+        return pts, pts, pts.clone(), dims, base, t.clone()
+    elif name == "off_canvas":
+        pts = ints(300, 900, (2, 300, 2)) * torch.tensor([1, -1], dtype=torch.int32,
+                                                         device="cuda")
+        return pts, pts, pts + ints(-50, 50, pts.shape), dims, base, t
+    elif name in ("k1", "k2"):
+        pts = _raster_points(2, int(name[1]), seed=5)[1]
+    elif name in ("k12288", "k20000"):   # the earlier fill's largest K, and past it
+        dims = (24, 40)
+        pts = ints(-10, 50, (1, int(name[1:]), 2))
+    elif name in ("128x96", "257x129", "520x520"):
+        dims = tuple(map(int, name.split("x")))
+        gen_s = torch.Generator(device="cuda").manual_seed(3)
+        scans = 20.0 * torch.rand((3, 1080), generator=gen_s, device="cuda")
+        from red_gym_tpu_torch.ops import rasterize
+
+        pts = rasterize.beam_endpoints(scans, 600, dims, 10.0 * min(dims) / 256)
+    elif name == "wide":   # past the draw's float form: W > 2^22
+        dims = (1, (1 << 22) + 96)
+        pts = torch.cat([ints(-1000, dims[1] + 1000, (1, 20, 1)), ints(-2, 3, (1, 20, 1))], -1)
+    elif name == "fill_tiles":   # three of the fill's 8192-column tiles
+        dims = (4, 20000)
+        pts = torch.cat([ints(-500, 20500, (2, 50, 1)), ints(-2, 6, (2, 50, 1))], -1)
+    elif name == "fill_wide":   # pixel indices past 2^24, which float32 rounds (both ties:
+        w = (1 << 24) + 4000      # crossings at x = 2^24 + 1000 and 2^24 + 2002)
+        dims = (2, w)
+        x0, x1 = (1 << 24) + 1000, (1 << 24) + 2002
+        pts = torch.tensor([[[x0, -1], [x0, 3], [x1, 3], [x1, -1]],
+                            [[w - 9001, 0], [w - 2, 3], [w + 7, 0], [w - 3000, -2]]],
+                           dtype=torch.int32, device="cuda")
+    elif name == "one_image":
+        pts = _raster_points(1, 600, seed=11)[1]
+    elif name == "mask_holding_ones":
+        pts = _raster_points(3, 600, seed=12)[1]
+        base = (torch.rand((3, *dims), generator=gen, device="cuda") < 0.2).to(torch.uint8)
+    elif name in ("t_1000", "t_430"):   # other tables, no one-pixel shortcut; 430 samples
+        pts = _raster_points(2, 600, seed=13)[1]       # end inside the last 32-sample iteration
+        t = torch.rand(int(name[2:]), generator=gen, device="cuda")
+    return pts, pts, torch.roll(pts, -1, dims=-2), dims, base, t
+
+
+RASTER_CASES = ["zigzag", "zero_length", "zero_length_other_t", "off_canvas", "k1", "k2",
+                "k12288", "k20000", "128x96", "257x129", "520x520", "wide", "fill_tiles",
+                "fill_wide", "one_image", "mask_holding_ones", "t_1000", "t_430"]
+
+
+@pytest.mark.parametrize("name", RASTER_CASES)
+def test_raster_kernel_edge_cases_equal_their_twins(name):
+    """The fill and the segment draw torch.equal to their twins, one launch a
+    call, on the shapes around their blocks and shortcuts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from red_gym_tpu_torch.ops import raster_kernels as rk
+
+    pts, starts, ends, dims, base, t = _raster_case(name)
+    if base is None:
+        base = torch.zeros((starts.shape[0], *dims), dtype=torch.uint8, device="cuda")
+    before = (rk.fill_polygon.launches, rk.draw_segments.launches)
+    got = rk.fill_polygon(pts, dims)
+    assert torch.equal(got, rk.fill_polygon_reference(pts, dims))
+    drawn = rk.draw_segments(base.clone(), starts, ends, t)
+    assert torch.equal(drawn, rk.draw_segments_reference(base.clone(), starts, ends, t))
+    assert (rk.fill_polygon.launches, rk.draw_segments.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    if name == "zigzag":
+        assert 0 < int(got.sum()) < got.numel()
 
 
 @pytest.mark.parametrize("mode", ["FILL", "POLYGON", "RAYS"])

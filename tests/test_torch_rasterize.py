@@ -6,7 +6,11 @@ Bars: bitmaps equal pixel for pixel in every draw mode, both background
 colours, 1, 3 and 4 channels, with and without the centre marker, on fuzzed
 scans (zero ranges, the max range, beams whose endpoints leave the canvas);
 ``beam_endpoints`` equal in float32 and float64; ``scans_to_legacy_tensors``
-equal; the chunked fill twin equal to the formula in one chunk.
+equal; the chunked fill twin equal to the formula in one chunk.  The draw
+kernel's one-pixel shortcut: every sample of a segment whose endpoints are
+one pixel rounds back to it, for every coordinate within
+``ZERO_LENGTH_MAX`` and every t of ``segment_t``; JAX draws such segments as
+their one pixel.
 """
 
 import itertools
@@ -118,6 +122,42 @@ def test_chunked_fill_twin_equals_one_chunk():
     for elems in (1, 64 * 108 * 3, 64 * 108 * 64 * 2):
         assert torch.equal(rk.fill_polygon_reference(pts, (64, 64), max_elems=elems), whole)
     assert 0 < int(whole.sum()) < whole.numel()
+
+
+def test_one_pixel_segment_samples_round_back_for_every_t():
+    """The draw kernel stores a one-pixel segment (start == end) as its pixel
+    alone where |coordinate| <= ZERO_LENGTH_MAX and t is segment_t's table:
+    with the twin's arithmetic (one rounding of s * (1 - t) + float32(s *
+    t), then rint) every sample rounds back to s, for every integer s in the
+    range and all 448 t."""
+    t = rk.segment_t(torch.device("cpu"))[None, :]
+    m = rk.ZERO_LENGTH_MAX
+    s = torch.arange(-m, m + 1, dtype=torch.float32)[:, None]
+    omt = (1.0 - t).to(torch.float64)
+    pts = (s.to(torch.float64) * omt + (s * t).to(torch.float64)).to(torch.float32)
+    assert torch.equal(torch.round(pts), s.expand_as(pts))
+
+
+@pytest.mark.parametrize("dims", [(64, 64), (48, 80)])
+def test_one_pixel_segments_draw_their_pixel(dims):
+    """JAX's ``_draw_segments`` and the twin draw one-pixel segments as their
+    pixel clipped to the canvas, inside the canvas and far off it up to
+    ZERO_LENGTH_MAX."""
+    h, w = dims
+    m = rk.ZERO_LENGTH_MAX
+    rng = np.random.default_rng(h)
+    pts = np.concatenate([rng.integers(-8, max(h, w) + 8, (40, 2)),
+                          rng.integers(-m, m + 1, (20, 2)),
+                          np.array([[-m, -m], [m, m], [-m, m], [0, 0], [w - 1, h - 1]])])
+    pts = pts.astype(np.int32)
+    want = np.zeros((h, w), dtype=bool)
+    want[np.clip(pts[:, 1], 0, h - 1), np.clip(pts[:, 0], 0, w - 1)] = True
+    got_jax = np.asarray(jr._draw_segments(jnp.asarray(pts), jnp.asarray(pts), dims))
+    np.testing.assert_array_equal(got_jax, want)
+    p = torch.from_numpy(pts)[None]
+    got = rk.draw_segments_reference(torch.zeros((1, h, w), dtype=torch.uint8), p, p.clone(),
+                                     rk.segment_t(torch.device("cpu")))
+    np.testing.assert_array_equal(got[0].numpy().astype(bool), want)
 
 
 def test_wrappers_refuse_wrong_inputs():
