@@ -1857,15 +1857,17 @@ def gym_compat_phase(dev, profile: bool) -> dict:
 RASTER_ENVS = 64          # images of the [rasterize] phase: the bitmap trainer's envs
 RASTER_CHECK_ENVS = 4     # of them drawn again on the CPU for the whole-call check
 # the rasterizer's least work, one lane instruction an operation at
-# LANE_OPS_PER_S: the fill 4 an edge (its two y's converted, their min and
-# max: the rows it crosses), 8 a crossing (row, edge) pair (the
-# denominator's compare and select, three subtractions, a product, a
-# division, a sum, and the crossing's place in the row) and 1 a pixel (its
-# parity written), not the (row, edge) tests of a kernel that sweeps every
-# edge; the draw 12 a sample of a segment whose endpoints differ (1 - t; per
-# coordinate a product, a fused multiply-add, a rint and a two-sided clip;
-# the pixel index), none for a one-pixel segment (its pixel alone)
-FILL_EDGE_OPS, FILL_CROSS_OPS, FILL_PIXEL_OPS, DRAW_SAMPLE_OPS = 4, 8, 1, 12
+# LANE_OPS_PER_S: the fill 3 an edge (one y converted, each point's shared
+# by two edges; the min and max of the two: the rows it crosses), 8 a
+# crossing (row, edge) pair (the denominator's compare and select, three
+# subtractions, a product, a division, a sum, and the crossing's place in
+# the row) and 1 a pixel (its parity written), not the (row, edge) tests of
+# a kernel that sweeps every edge; the draw 11 a sample of a segment whose
+# endpoints differ (per coordinate a product, a fused multiply-add, a rint
+# and a two-sided clip; the pixel index) and 1 a t (1 - t, shared by every
+# segment), none for a one-pixel segment (its pixel alone)
+FILL_EDGE_OPS, FILL_CROSS_OPS, FILL_PIXEL_OPS = 3, 8, 1
+DRAW_SAMPLE_OPS, DRAW_T_OPS = 11, 1
 SAC_PROFILE_STEPS = 3     # planning steps under torch.profiler in [sac_bitmap]
 # the planning step's profiler ranges (agents/planning_env.py) and the policy's
 PLAN_RANGES = ("sac/policy", "plan/mpc", "plan/env_step", "plan/bitmap", "plan/reward")
@@ -1907,12 +1909,13 @@ def fill_bound(points, h: int, w: int) -> dict:
 
 def draw_bound(starts, ends, t, h: int, w: int) -> dict:
     """The draw's bound: the samples of the segments whose endpoints differ
-    in this run, DRAW_SAMPLE_OPS each, against its bytes (endpoints and t
-    read, the mask written once)."""
+    in this run, DRAW_SAMPLE_OPS each, and DRAW_T_OPS a t, against its bytes
+    (endpoints and t read, the mask written once)."""
     moving = int((starts != ends).any(-1).sum())
     samples = moving * t.numel()
-    return {**bound(nbytes(starts, ends, t) + starts.shape[0] * h * w,
-                    lane=float(DRAW_SAMPLE_OPS * samples)), "samples": samples}
+    ops = DRAW_SAMPLE_OPS * samples + (DRAW_T_OPS * t.numel() if moving else 0)
+    return {**bound(nbytes(starts, ends, t) + starts.shape[0] * h * w, lane=float(ops)),
+            "samples": samples}
 
 
 def segment_runs(starts, ends, t, h: int, w: int, images: int = 8) -> dict:
@@ -1937,7 +1940,8 @@ def segment_runs(starts, ends, t, h: int, w: int, images: int = 8) -> dict:
 
 def rasterize_phase(dev, reports) -> dict:
     """[rasterize]: the fill and segment kernels against their twins at
-    RASTER_ENVS x 256 x 256 (FILL's fill and outline, RAYS' rays); the
+    RASTER_ENVS x 256 x 256 and at one image (FILL's fill and outline, RAYS'
+    rays; one image takes other blocks and another draw instance); the
     outline's runs and distinct pixels from the twin on the host; times and
     bounds at RASTER_ENVS images and at one; lidar_to_bitmap on the card
     equal to the CPU's in all three modes -> {"fill_polygon": record,
@@ -1954,16 +1958,21 @@ def rasterize_phase(dev, reports) -> dict:
     center = torch.tensor([h // 2, w // 2], dtype=torch.int32, device=dev).expand_as(pts)
     n, k = pts.shape[:2]
 
-    fill_k, fill_r = rk.fill_polygon(pts, (h, w)), rk.fill_polygon_reference(pts, (h, w))
-    masks = {}
-    for label, starts, ends in (("outline", pts, rolled), ("rays", center, pts)):
-        mk = rk.draw_segments(torch.zeros((n, h, w), dtype=torch.uint8, device=dev),
-                              starts, ends, t)
-        mr = rk.draw_segments_reference(torch.zeros_like(mk), starts, ends, t)
-        masks[label] = (mk, mr)
-    torch.cuda.synchronize()
-    checks = {"fill": torch.equal(fill_k, fill_r),
-              **{label: torch.equal(a, b) for label, (a, b) in masks.items()}}
+    def against_twins(m: int):
+        """Each kernel and its twin on the first m images -> (fill pair,
+        {"outline": pair, "rays": pair}, {label: torch.equal})."""
+        p = pts[:m]
+        fill = rk.fill_polygon(p, (h, w)), rk.fill_polygon_reference(p, (h, w))
+        drawn = {}
+        for label, starts, ends in (("outline", p, rolled[:m]), ("rays", center[:m], p)):
+            mk = rk.draw_segments(torch.zeros((m, h, w), dtype=torch.uint8, device=dev),
+                                  starts, ends, t)
+            drawn[label] = mk, rk.draw_segments_reference(torch.zeros_like(mk), starts, ends, t)
+        torch.cuda.synchronize()
+        return fill, drawn, {"fill": torch.equal(*fill),
+                             **{label: torch.equal(*pair) for label, pair in drawn.items()}}
+
+    (fill_k, fill_r), masks, checks = against_twins(n)
     share = {"inside": float(fill_k.float().mean()),
              **{label: float(m[0].float().mean()) for label, m in masks.items()}}
     say("rasterize", f"{n} scans x {BEAMS} beams of the exact scan on {TRACK}, {k} drawn on "
@@ -1973,6 +1982,10 @@ def rasterize_phase(dev, reports) -> dict:
         fail(f"rasterize: a kernel differs from its twin: {checks}")
     if not 0.01 < share["inside"] < 0.99:
         fail("rasterize: degenerate fill")
+    fill_1, masks_1, checks_1 = against_twins(1)
+    say("rasterize", f"one image: kernels torch.equal to their twins {checks_1}")
+    if not all(checks_1.values()):
+        fail(f"rasterize: at one image a kernel differs from its twin: {checks_1}")
 
     few = scans[:RASTER_CHECK_ENVS]
     same = {}
@@ -2019,9 +2032,10 @@ def rasterize_phase(dev, reports) -> dict:
             rec["fill_polygon"] = {"crossings": lims["crossings"], **rec_fill}
             rec["draw_segments"] = {"samples": draw_lims["samples"], **rec_draw, **runs,
                                     "distinct_pixels": int(distinct.sum())}
-    rec["fill_polygon"]["max_abs_err"] = float((fill_k.int() - fill_r.int()).abs().max())
+    rec["fill_polygon"]["max_abs_err"] = float(max(
+        (a.int() - b.int()).abs().max() for a, b in ((fill_k, fill_r), fill_1)))
     rec["draw_segments"]["max_abs_err"] = float(max(
-        (a.int() - b.int()).abs().max() for a, b in masks.values()))
+        (a.int() - b.int()).abs().max() for a, b in (*masks.values(), *masks_1.values())))
     return rec
 
 

@@ -32,7 +32,8 @@ torch.equal to a hand loop of ``env.step`` + ``rollout.reset_done``.  The
 rasterizer's fill and segment draw (csrc/rasterize.cu) torch.equal to
 their twins on fuzzed scans and on edge cases: a zigzag polygon whose
 edges span the canvas, one-pixel segments (inside and past the draw's
-shortcut, and with a t table that is not segment_t's tensor), segments off
+shortcut, with segment_t's values in another tensor, and with one t of
+them changed so that the shortcut would be wrong), segments off
 the canvas, K = 1, 2, 12,288 and 20,000, canvases of 128 x 96,
 257 x 129, 520 x 520, 1 x (2^22 + 96) (the draw's integer form), 4 x
 20000 (three of the fill's column tiles) and 2 x (2^24 + 4000) (pixel
@@ -1391,6 +1392,12 @@ def _raster_case(name):
     elif name == "zero_length_other_t":   # segment_t's values, not its tensor
         pts = ints(-300, 300, (2, 500, 2))
         return pts, pts, pts.clone(), dims, base, t.clone()
+    elif name in ("zero_length_t_edited", "zero_length_t_edited_one"):
+        # one t of segment_t's far off: its samples do not round back to the pixel
+        pts = ints(-300, 300, (1 if name.endswith("one") else 3, 600, 2))
+        t = t.clone()
+        t[200] = 1.2345e9
+        return pts, pts, pts.clone(), dims, base, t
     elif name == "off_canvas":
         pts = ints(300, 900, (2, 300, 2)) * torch.tensor([1, -1], dtype=torch.int32,
                                                          device="cuda")
@@ -1431,7 +1438,8 @@ def _raster_case(name):
     return pts, pts, torch.roll(pts, -1, dims=-2), dims, base, t
 
 
-RASTER_CASES = ["zigzag", "zero_length", "zero_length_other_t", "off_canvas", "k1", "k2",
+RASTER_CASES = ["zigzag", "zero_length", "zero_length_other_t", "zero_length_t_edited",
+                "zero_length_t_edited_one", "off_canvas", "k1", "k2",
                 "k12288", "k20000", "128x96", "257x129", "520x520", "wide", "fill_tiles",
                 "fill_wide", "one_image", "mask_holding_ones", "t_1000", "t_430"]
 

@@ -9,8 +9,9 @@ scans (zero ranges, the max range, beams whose endpoints leave the canvas);
 equal; the chunked fill twin equal to the formula in one chunk.  The draw
 kernel's one-pixel shortcut: every sample of a segment whose endpoints are
 one pixel rounds back to it, for every coordinate within
-``ZERO_LENGTH_MAX`` and every t of ``segment_t``; JAX draws such segments as
-their one pixel.
+``ZERO_LENGTH_MAX`` and every t of ``segment_t``, whose values the kernel
+computes as i * ``SEGMENT_STEP`` to check its t's; JAX draws such segments
+as their one pixel.
 """
 
 import itertools
@@ -124,10 +125,19 @@ def test_chunked_fill_twin_equals_one_chunk():
     assert 0 < int(whole.sum()) < whole.numel()
 
 
+def test_segment_table_is_the_draw_kernels_products():
+    """The draw kernel finds segment_t's values as float32(i * SEGMENT_STEP),
+    the last one 1 (one rounding of the exact product)."""
+    i = np.arange(rk.SEGMENT_SAMPLES, dtype=np.float64)
+    want = (i * np.float64(rk.SEGMENT_STEP)).astype(np.float32)
+    want[-1] = 1.0
+    np.testing.assert_array_equal(rk.segment_t(torch.device("cpu")).numpy(), want)
+
+
 def test_one_pixel_segment_samples_round_back_for_every_t():
     """The draw kernel stores a one-pixel segment (start == end) as its pixel
-    alone where |coordinate| <= ZERO_LENGTH_MAX and t is segment_t's table:
-    with the twin's arithmetic (one rounding of s * (1 - t) + float32(s *
+    alone where |coordinate| <= ZERO_LENGTH_MAX and each of its t's is
+    segment_t's: with the twin's arithmetic (one rounding of s * (1 - t) + float32(s *
     t), then rint) every sample rounds back to s, for every integer s in the
     range and all 448 t."""
     t = rk.segment_t(torch.device("cpu"))[None, :]
