@@ -52,11 +52,9 @@ race's 50 x 64 rays:
 ``--kernel raster``, on the 600 endpoints of the exact scan's scans at
 random free poses of track_0019 (``chip_smoke.raster_points``), each
 operand a call of ``raster_kernels.fill_polygon`` or ``draw_segments``:
-``fill`` and ``outline`` (FILL's fill and closed outline), ``outline_all``
-(the outline with the draw's one-pixel shortcut off: ``ZERO_LENGTH_MAX``
-set to -1, where the checkout has one) and ``rays`` (RAYS' segments from
-the centre) at 64 x 256 x 256; the same four at ``one`` image of 256 x 256
-and at ``small``, 4 images of 128 x 96:
+``fill`` and ``outline`` (FILL's fill and closed outline) and ``rays``
+(RAYS' segments from the centre) at 64 x 256 x 256; the same three at
+``one`` image of 256 x 256 and at ``small``, 4 images of 128 x 96:
 
 - ``equal``: the kernel ``torch.equal`` to its twin (``fill_polygon_reference``
   or ``draw_segments_reference`` on a zero canvas);
@@ -263,21 +261,6 @@ def measure_march(root: str) -> dict:
     return res
 
 
-def without_shortcut(rk, fn):
-    """``fn`` with the draw kernel's one-pixel shortcut off, where the
-    raster_kernels module ``rk`` has one."""
-    def call():
-        keep = getattr(rk, "ZERO_LENGTH_MAX", None)
-        if keep is not None:
-            rk.ZERO_LENGTH_MAX = -1
-        try:
-            return fn()
-        finally:
-            if keep is not None:
-                rk.ZERO_LENGTH_MAX = keep
-    return call
-
-
 def measure_raster(root: str) -> dict:
     """Every number of the rasterizer's A/B of the checkout at ``root``,
     with its own package."""
@@ -306,8 +289,6 @@ def measure_raster(root: str) -> dict:
                           lambda s=starts, e=ends, c=canvas: rk.draw_segments(c, s, e, t),
                           lambda s=starts, e=ends, c=canvas: rk.draw_segments_reference(
                               torch.zeros_like(c), s, e, t))
-        ops["outline_all"] = ("draw", without_shortcut(rk, ops["outline"][1]),
-                              ops["outline"][2])
         for label, (kind, kernel, twin) in ops.items():
             name = shape + label
             if kind == "draw":

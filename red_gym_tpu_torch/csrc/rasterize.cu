@@ -38,14 +38,8 @@
 // blocks (few images) the iterations are split into pieces on blockIdx.z.
 // On canvases under 2^24 pixels the pixel is kept as a float index: clip,
 // then rint by adding and subtracting 1.5 * 2^23 (exact below 2^22), no
-// float-to-int conversion a sample.  A segment whose endpoints are one pixel
-// (s == e) stores that pixel once: every sample of fma(s, 1 - t, s * t)
-// rounds back to s where |s| <= ZERO_LENGTH_MAX and t is a value of
-// segment_t's table, i * step (the last 1), which
-// tests/test_torch_rasterize.py checks for every such s and t.  Each warp
-// compares the t's of its samples with that table at launch (__all_sync) and
-// takes the shortcut only where all of them match; elsewhere every sample is
-// evaluated.  Every store writes 1, so their order does not matter.
+// float-to-int conversion a sample.  Every store writes 1, so their order
+// does not matter.
 //
 // Rounding.  Built with -fmad=false (ops/_build.py), and the arithmetic is
 // written with the _rn intrinsics: every operation rounds on its own, with
@@ -58,13 +52,15 @@
 // MB of mask, 1.3 us at the memory rate; its least work, a few operations
 // an edge and a crossing and one a pixel, is far less, so bytes bound it.
 // The draw's least work is the samples of the segments whose endpoints
-// differ (a third are one pixel), about 11.4 M of 11 lane instructions, and
-// 1 - t once a t: 3.7 us at the lane rate.  The earlier forms (a block a pixel row, each reading
-// all 600 points; a thread a sample and 17.2 M scattered byte stores, most
-// onto pixels set already) took 0.027 and 0.079 ms; these take 0.0106 and
-// 0.0197 ms, and at one image 0.0024 and 0.0022 ms (device time,
-// prestep_ab.py --kernel raster, H100 80GB HBM3 at 700 W; PERF.md section
-// 6, rows R and R-d, with the forms tried on the way).
+// differ (a third are one pixel), about 11.3 M of 11 lane instructions, and
+// 1 - t once a t: 3.7 us at the lane rate; the kernel evaluates all 17.2 M
+// samples (a one-pixel shortcut that holds for any t did not pay).  The
+// earlier forms (a block a pixel row, each reading all 600 points; a thread
+// a sample and 17.2 M scattered byte stores, most onto pixels set already)
+// took 0.027 and 0.079 ms; these take 0.0106 and 0.0214 ms, and at one image
+// 0.0024 and 0.0023 ms (device time, prestep_ab.py --kernel raster, H100
+// 80GB HBM3 at 700 W; PERF.md section 6, rows R and R-d, with the forms
+// tried on the way).
 
 #include <cuda_runtime.h>
 
@@ -200,11 +196,6 @@ fill_polygon_kernel(const int2* __restrict__ pts, int k, int h, int w, int band,
   }
 }
 
-// segment_t's t of sample j of `samples`: j * step, the last one 1.
-__device__ __forceinline__ float segment_t_at(int j, int samples, float step) {
-  return j == samples - 1 ? 1.0f : __fmul_rn(__int2float_rn(j), step);
-}
-
 // The pixel of the sample at t of segment (sx, sy) -> (ex, ey), rounded as
 // the twin rounds it (fma(s, 1 - t, e * t), then rint),
 // clipped to the canvas, as a key that is equal for equal pixels: its index
@@ -255,7 +246,7 @@ template <bool SMALL, int ITERS>
 __global__ void __launch_bounds__(DRAW_WARPS * WARP, ITERS > 0 ? 4 : 8)
 draw_segments_kernel(const int2* __restrict__ starts, const int2* __restrict__ ends, int k,
                      int slice, int chunk, const float* __restrict__ t, int samples,
-                     float step, int zero_max, int h, int w, unsigned char* __restrict__ mask) {
+                     int h, int w, unsigned char* __restrict__ mask) {
   using K = Key<SMALL>;
   using KeyT = typename K::type;
   const int64_t img = blockIdx.x;
@@ -268,20 +259,12 @@ draw_segments_kernel(const int2* __restrict__ starts, const int2* __restrict__ e
   unsigned char* out = mask + img * (static_cast<int64_t>(h) * w);
   // t of this lane's samples: all of them, or the piece's first
   float tr[ITERS > 0 ? ITERS : 1];
-  // the one-pixel shortcut, where all of this piece's t's are segment_t's
-  bool table = zero_max >= 0 && samples == DRAW_ITERS * WARP;
   if constexpr (ITERS > 0) {
 #pragma unroll
-    for (int i = 0; i < ITERS; ++i) {
-      tr[i] = __ldg(t + min(i * WARP + lane, samples - 1));
-      table = table && tr[i] == segment_t_at(i * WARP + lane, samples, step);
-    }
+    for (int i = 0; i < ITERS; ++i) tr[i] = __ldg(t + min(i * WARP + lane, samples - 1));
   } else {
     tr[0] = __ldg(t + min(it0 * WARP + lane, samples - 1));
-    for (int it = it0; table && it < it1; ++it)
-      table = __ldg(t + it * WARP + lane) == segment_t_at(it * WARP + lane, samples, step);
   }
-  const int zmax = __all_sync(FULL, table) ? zero_max : -1;
   const int2* sp = starts + static_cast<size_t>(img) * k;
   const int2* ep = ends + static_cast<size_t>(img) * k;
   int seg = s0 + static_cast<int>(threadIdx.x) / WARP;
@@ -296,28 +279,22 @@ draw_segments_kernel(const int2* __restrict__ starts, const int2* __restrict__ e
       na = sp[seg + DRAW_WARPS];
       nb = ep[seg + DRAW_WARPS];
     }
-    if (a.x == b.x && a.y == b.y && a.x >= -zmax && a.x <= zmax && a.y >= -zmax &&
-        a.y <= zmax) {
-      if (lane == 0)   // by each piece: another piece may evaluate its samples
-        out[static_cast<int64_t>(min(max(a.y, 0), h - 1)) * w + min(max(a.x, 0), w - 1)] = 1;
-    } else if (it0 < it1) {
-      const float sx = __int2float_rn(a.x), sy = __int2float_rn(a.y);
-      const float ex = __int2float_rn(b.x), ey = __int2float_rn(b.y);
-      if constexpr (ITERS > 0) {
-        KeyT key[ITERS];
+    const float sx = __int2float_rn(a.x), sy = __int2float_rn(a.y);
+    const float ex = __int2float_rn(b.x), ey = __int2float_rn(b.y);
+    if constexpr (ITERS > 0) {
+      KeyT key[ITERS];
 #pragma unroll
-        for (int i = 0; i < ITERS; ++i) key[i] = K::at(sx, sy, ex, ey, tr[i], h, w);
+      for (int i = 0; i < ITERS; ++i) key[i] = K::at(sx, sy, ex, ey, tr[i], h, w);
 #pragma unroll
-        for (int i = 0; i < ITERS; ++i)
-          store_run(key[i], i > 0 ? key[i - 1] : K::NONE, i * WARP + lane < samples, lane, out);
-      } else {
-        KeyT prev = K::NONE;   // a piece stores its first pixel
-        for (int it = it0; it < it1; ++it) {
-          const float tt = it == it0 ? tr[0] : __ldg(t + min(it * WARP + lane, samples - 1));
-          const KeyT key = K::at(sx, sy, ex, ey, tt, h, w);
-          store_run(key, prev, it * WARP + lane < samples, lane, out);
-          prev = key;
-        }
+      for (int i = 0; i < ITERS; ++i)
+        store_run(key[i], i > 0 ? key[i - 1] : K::NONE, i * WARP + lane < samples, lane, out);
+    } else {
+      KeyT prev = K::NONE;   // a piece stores its first pixel
+      for (int it = it0; it < it1; ++it) {
+        const float tt = it == it0 ? tr[0] : __ldg(t + min(it * WARP + lane, samples - 1));
+        const KeyT key = K::at(sx, sy, ex, ey, tt, h, w);
+        store_run(key, prev, it * WARP + lane < samples, lane, out);
+        prev = key;
       }
     }
     a = na;
@@ -327,14 +304,13 @@ draw_segments_kernel(const int2* __restrict__ starts, const int2* __restrict__ e
 
 template <bool SMALL>
 void launch_draw(dim3 grid, cudaStream_t stream, const int2* s, const int2* e, int k, int slice,
-                 int chunk, const float* t, int samples, float step, int zero_max, int h,
-                 int w, unsigned char* mask) {
+                 int chunk, const float* t, int samples, int h, int w, unsigned char* mask) {
   if (grid.z == 1 && (samples + WARP - 1) / WARP == DRAW_ITERS) {
     draw_segments_kernel<SMALL, DRAW_ITERS><<<grid, DRAW_WARPS * WARP, 0, stream>>>(
-        s, e, k, slice, chunk, t, samples, step, zero_max, h, w, mask);
+        s, e, k, slice, chunk, t, samples, h, w, mask);
   } else {
     draw_segments_kernel<SMALL, 0><<<grid, DRAW_WARPS * WARP, 0, stream>>>(
-        s, e, k, slice, chunk, t, samples, step, zero_max, h, w, mask);
+        s, e, k, slice, chunk, t, samples, h, w, mask);
   }
 }
 
@@ -361,12 +337,10 @@ int fill_polygon_launch(const int* points, int n, int k, int h, int w,
 
 // starts, ends (n, k, 2) int32, contiguous; t (samples,) float32 -> a 1
 // stored into mask (n, h, w) at every sample's pixel; n * k > 0, samples >
-// 0.  zero_max: the largest coordinate magnitude of a one-pixel segment drawn
-// as that pixel alone where t is segment_t's table of `step`, or -1 for none.
-// Returns the CUDA error.
+// 0.  Returns the CUDA error.
 int draw_segments_launch(const int* starts, const int* ends, int n, int k, const float* t,
-                         int samples, float step, int zero_max, int h, int w,
-                         unsigned char* mask, cudaStream_t stream) {
+                         int samples, int h, int w, unsigned char* mask,
+                         cudaStream_t stream) {
   const int64_t segments = static_cast<int64_t>(n) * k;
   // a warp a segment; the segment's samples in pieces, grid.z of them, where
   // that leaves the card short of TARGET_BLOCKS blocks of DRAW_WARPS warps
@@ -381,11 +355,9 @@ int draw_segments_launch(const int* starts, const int* ends, int n, int k, const
   const auto* s = reinterpret_cast<const int2*>(starts);
   const auto* e = reinterpret_cast<const int2*>(ends);
   if (static_cast<int64_t>(h) * w < (int64_t{1} << 24) && h <= (1 << 22) && w <= (1 << 22)) {
-    launch_draw<true>(grid, stream, s, e, k, slice, chunk, t, samples, step, zero_max, h, w,
-                      mask);
+    launch_draw<true>(grid, stream, s, e, k, slice, chunk, t, samples, h, w, mask);
   } else {
-    launch_draw<false>(grid, stream, s, e, k, slice, chunk, t, samples, step, zero_max, h, w,
-                       mask);
+    launch_draw<false>(grid, stream, s, e, k, slice, chunk, t, samples, h, w, mask);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,25 +35,18 @@ import torch
 from red_gym_tpu_torch.ops import _build
 
 SEGMENT_SAMPLES = 448
-# segment_t's step: its t's are i * SEGMENT_STEP in float32, the last one 1
-SEGMENT_STEP = np.float32(1.0 / (SEGMENT_SAMPLES - 1))
 # the twins' largest boolean intermediate, in elements: about 64 MB each
 _TWIN_ELEMS = 1 << 26
-# the draw kernel stores a one-pixel segment (start == end) as that pixel
-# alone, without its samples, where its coordinates lie within this
-# magnitude and the kernel finds every t equal to segment_t's:
-# tests/test_torch_rasterize.py checks that every sample rounds back to the
-# pixel there
-ZERO_LENGTH_MAX = 4096
 
 
 @functools.lru_cache(maxsize=None)
-def segment_t(device) -> torch.Tensor:
+def segment_t(device: torch.device) -> torch.Tensor:
     """The draw's SEGMENT_SAMPLES sample positions on ``device``,
-    ``jnp.linspace(0, 1, 448, float32)`` exactly: i * SEGMENT_STEP, the last
-    one 1.  (torch.linspace and a float64 table cast to float32 each differ
-    from it in some entries.)"""
-    t = np.arange(SEGMENT_SAMPLES, dtype=np.float32) * SEGMENT_STEP
+    ``jnp.linspace(0, 1, 448, float32)`` exactly: i * float32(1 / 447), the
+    last one 1.  (torch.linspace and a float64 table cast to float32 each
+    differ from it in some entries.)"""
+    n = SEGMENT_SAMPLES
+    t = np.arange(n, dtype=np.float32) * np.float32(1.0 / (n - 1))
     t[-1] = 1.0
     return torch.from_numpy(t).to(device)
 
@@ -129,7 +122,7 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fill_polygon_launch.argtypes = [p, i, i, i, i, p, p]
     lib.fill_polygon_launch.restype = ctypes.c_int
-    lib.draw_segments_launch.argtypes = [p, p, i, i, p, i, ctypes.c_float, i, i, i, p, p]
+    lib.draw_segments_launch.argtypes = [p, p, i, i, p, i, i, i, p, p]
     lib.draw_segments_launch.restype = ctypes.c_int
     return lib
 
@@ -194,8 +187,8 @@ def draw_segments(mask, starts, ends, t):
     h, w = mask.shape[-2:]
     starts, ends, t = starts.contiguous(), ends.contiguous(), t.contiguous()
     err = _lib().draw_segments_launch(starts.data_ptr(), ends.data_ptr(), n, k,
-                                      t.data_ptr(), t.numel(), SEGMENT_STEP,
-                                      ZERO_LENGTH_MAX, h, w, mask.data_ptr(), _stream(mask))
+                                      t.data_ptr(), t.numel(), h, w, mask.data_ptr(),
+                                      _stream(mask))
     if err != 0:
         raise RuntimeError(f"draw_segments kernel launch failed: CUDA error {err}")
     draw_segments.launches += 1

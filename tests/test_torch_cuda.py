@@ -31,14 +31,12 @@ kernel launched once a step and once a reset step, and every output
 torch.equal to a hand loop of ``env.step`` + ``rollout.reset_done``.  The
 rasterizer's fill and segment draw (csrc/rasterize.cu) torch.equal to
 their twins on fuzzed scans and on edge cases: a zigzag polygon whose
-edges span the canvas, one-pixel segments (inside and past the draw's
-shortcut, with segment_t's values in another tensor, and with one t of
-them changed so that the shortcut would be wrong), segments off
-the canvas, K = 1, 2, 12,288 and 20,000, canvases of 128 x 96,
-257 x 129, 520 x 520, 1 x (2^22 + 96) (the draw's integer form), 4 x
-20000 (three of the fill's column tiles) and 2 x (2^24 + 4000) (pixel
-indices that float32 rounds), one
-image, a mask already holding 1s, and t tables of 1000 and 430 samples.
+edges span the canvas, one-pixel segments (on the canvas and far off it,
+on three images and on one), segments off the canvas, K = 1, 2, 12,288 and
+20,000, canvases of 128 x 96, 257 x 129, 520 x 520, 1 x (2^22 + 96) (the
+draw's integer form), 4 x 20000 (three of the fill's column tiles) and 2 x
+(2^24 + 4000) (pixel indices that float32 rounds), one image, a mask
+already holding 1s, and t tables of 1000 and 430 samples.
 """
 
 import dataclasses
@@ -1385,18 +1383,9 @@ def _raster_case(name):
         k = torch.arange(600, device="cuda")
         pts = torch.stack([k * 256 // 600, torch.where(k % 2 == 0, -3, 259)], -1)
         pts = pts.to(torch.int32)[None]
-    elif name == "zero_length":   # also past the one-pixel shortcut's range
-        pts = ints(-300, 300, (3, 500, 2))
+    elif name in ("zero_length", "zero_length_one"):   # on the canvas and far off it
+        pts = ints(-300, 300, (1 if name.endswith("one") else 3, 500, 2))
         pts[0, :40] = ints(-9000, 9000, (40, 2))
-        return pts, pts, pts.clone(), dims, base, t
-    elif name == "zero_length_other_t":   # segment_t's values, not its tensor
-        pts = ints(-300, 300, (2, 500, 2))
-        return pts, pts, pts.clone(), dims, base, t.clone()
-    elif name in ("zero_length_t_edited", "zero_length_t_edited_one"):
-        # one t of segment_t's far off: its samples do not round back to the pixel
-        pts = ints(-300, 300, (1 if name.endswith("one") else 3, 600, 2))
-        t = t.clone()
-        t[200] = 1.2345e9
         return pts, pts, pts.clone(), dims, base, t
     elif name == "off_canvas":
         pts = ints(300, 900, (2, 300, 2)) * torch.tensor([1, -1], dtype=torch.int32,
@@ -1432,22 +1421,35 @@ def _raster_case(name):
     elif name == "mask_holding_ones":
         pts = _raster_points(3, 600, seed=12)[1]
         base = (torch.rand((3, *dims), generator=gen, device="cuda") < 0.2).to(torch.uint8)
-    elif name in ("t_1000", "t_430"):   # other tables, no one-pixel shortcut; 430 samples
-        pts = _raster_points(2, 600, seed=13)[1]       # end inside the last 32-sample iteration
+    elif name in ("t_1000", "t_430"):   # other tables; 430 samples end inside the
+        pts = _raster_points(2, 600, seed=13)[1]       # last 32-sample iteration
         t = torch.rand(int(name[2:]), generator=gen, device="cuda")
     return pts, pts, torch.roll(pts, -1, dims=-2), dims, base, t
 
 
-RASTER_CASES = ["zigzag", "zero_length", "zero_length_other_t", "zero_length_t_edited",
-                "zero_length_t_edited_one", "off_canvas", "k1", "k2",
+RASTER_CASES = ["zigzag", "zero_length", "zero_length_one", "off_canvas", "k1", "k2",
                 "k12288", "k20000", "128x96", "257x129", "520x520", "wide", "fill_tiles",
                 "fill_wide", "one_image", "mask_holding_ones", "t_1000", "t_430"]
+
+
+def test_raster_draw_of_no_samples_launches_nothing():
+    """An empty t table leaves the mask as it was and counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from red_gym_tpu_torch.ops import raster_kernels as rk
+
+    _, pts = _raster_points(2, 600, seed=14)
+    mask = torch.zeros((2, 256, 256), dtype=torch.uint8, device="cuda")
+    before = rk.draw_segments.launches
+    t = torch.empty(0, dtype=torch.float32, device="cuda")
+    assert rk.draw_segments(mask, pts, torch.roll(pts, -1, dims=-2), t) is mask
+    assert int(mask.sum()) == 0 and rk.draw_segments.launches == before
 
 
 @pytest.mark.parametrize("name", RASTER_CASES)
 def test_raster_kernel_edge_cases_equal_their_twins(name):
     """The fill and the segment draw torch.equal to their twins, one launch a
-    call, on the shapes around their blocks and shortcuts."""
+    call, on the shapes around their blocks, tiles and forms."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     from red_gym_tpu_torch.ops import raster_kernels as rk
