@@ -191,9 +191,12 @@ line:
      red_gym_tpu/ops/edt.py, no TPU kernel) on the 11 packaged tracks,
      berlin, skirk and the generated track: torch.equal to its twin on the
      card and within scipy's bar (rtol 1e-6, atol 1e-5); on track_0019 and
-     the largest map its times, bound (the bytes, against the linear
-     operations of a row pass and a per-column lower envelope), registers,
-     spills and scipy's host seconds;
+     the largest map its times, each of its two kernels' device ms, bound
+     (the bytes, against the linear operations of a row pass and a
+     per-column lower envelope), registers, spills and scipy's host
+     seconds; on three long-search grids (2048 x 2048 walled only on its
+     border, 2048 x 2048 with one zero pixel, 1024 x 1024 all free)
+     torch.equal to its twin and each kernel's device ms;
    - [trackgen]: maps.trackgen.generate(seed 0) on the host, load_map with
      edt_backend="device" (kernel E once) and the texture marched on the
      card, then the default path for 200 steps from the generated CSV's
@@ -600,10 +603,12 @@ def timed(label: str, kernel, plain, lims: dict, res: dict, functions: tuple[str
     """Median times of the kernel, its plain twin and, where one PyTorch
     call computes the kernel's arithmetic, that call (event windows,
     ``median_ms``), the kernel's device time (``device_ms`` of the device
-    kernels named ``functions``), beside the bound and the kernel's
+    kernels named ``functions``, their sum and, under
+    ``device_ms_by_kernel``, each), beside the bound and the kernel's
     registers and spills."""
     ms = median_ms(kernel, TIMING_REPS)
-    dev_ms = device_ms(kernel, functions)["total"]
+    dev = device_ms(kernel, functions)
+    dev_ms = dev.pop("total")
     plain_ms = median_ms(plain, TIMING_REPS)
     library_ms = None if library is None else median_ms(library, TIMING_REPS)
     lib = "" if library is None else f", library call {library_ms:.3f} ms"
@@ -613,8 +618,8 @@ def timed(label: str, kernel, plain, lims: dict, res: dict, functions: tuple[str
         f"on the device {dev_ms:.4f} ms (profiler, median of >= {DEVICE_CALLS} launches), "
         f"plain PyTorch twin {plain_ms:.3f} ms{lib}; bound {lims['bound_ms']:.4f} ms "
         f"by {lims['bound_by']}{regs}")
-    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, **lims,
-            "library_ms": library_ms, **res}
+    return {"ms": ms, "device_ms": dev_ms, "device_ms_by_kernel": dev, "plain_ms": plain_ms,
+            **lims, "library_ms": library_ms, **res}
 
 
 def tap_work(k_n: int, t_bins: int, b_n: int, ew_dtype) -> dict:
@@ -2254,14 +2259,35 @@ def edt_bound(occ, out) -> dict:
     return bound(moved, lane=(EDT_ROW_OPS + EDT_COL_OPS) * h * w)
 
 
+EDT_KERNELS = ("edt_row_kernel", "edt_col_kernel")   # kernel E's two launches
+
+
+def edt_long_searches(dev) -> dict:
+    """The grids where an EDT's column search runs longest (1 free, 0
+    wall): 2048 x 2048 walled only on its border (an open hall), 2048 x
+    2048 with one zero pixel at (0, 0), and 1024 x 1024 all free (every
+    column at JAX's sentinel)."""
+    import torch
+
+    hall = torch.ones((2048, 2048), dtype=torch.float32, device=dev)
+    hall[[0, -1], :] = 0
+    hall[:, [0, -1]] = 0
+    one = torch.ones((2048, 2048), dtype=torch.float32, device=dev)
+    one[0, 0] = 0
+    return {"hall_2048": hall, "one_zero_2048": one,
+            "free_1024": torch.ones((1024, 1024), dtype=torch.float32, device=dev)}
+
+
 def edt_phase(maps: list, dev, reports) -> dict:
     """[edt]: kernel E on each map of ``maps`` (yaml paths): torch.equal to
     its twin on the card, within scipy's bar (rtol 1e-6, atol 1e-5), and
     on track_0019 zero-padded to the stack's size (the largest height and
     width of the maps, 952 x 947 for the packaged tracks); on track_0019,
-    the padded grid and a lone map its times, bound, registers and spills,
-    and scipy's host seconds beside them (set-up context, not a
-    yardstick)."""
+    the padded grid and a lone map its times, each kernel's device ms,
+    bound, registers and spills, and scipy's host seconds beside them
+    (set-up context, not a yardstick).  With track_0019 among the maps,
+    also the long-search grids (``edt_long_searches``): torch.equal to the
+    twin and each kernel's device ms."""
     import numpy as np
     import torch
     from scipy.ndimage import distance_transform_edt
@@ -2302,14 +2328,37 @@ def edt_phase(maps: list, dev, reports) -> dict:
             fail(f"edt: {name}: the kernel differs from its twin or from scipy")
         if name in timed_maps and name not in rec:
             res_k = dict(resources(reports, "edt"))
-            res_k["kernels"] = {fn: reports["edt"][fn] for fn in ("edt_row_kernel",
-                                                                    "edt_col_kernel")}
+            res_k["kernels"] = {fn: reports["edt"][fn] for fn in EDT_KERNELS}
             r = timed(f"edt {name}", lambda: edt_kernels.edt_transform(o, res),
                       lambda: edt_kernels.edt_reference(o, res), edt_bound(o, got), res_k,
-                      ("edt_row_kernel", "edt_col_kernel"))
+                      EDT_KERNELS)
+            say("edt", f"{name}: on the device row kernel "
+                f"{r['device_ms_by_kernel']['edt_row_kernel']:.5f} ms + column kernel "
+                f"{r['device_ms_by_kernel']['edt_col_kernel']:.5f} ms = "
+                f"{r['device_ms']:.5f} ms")
             rec[name] = {**r, "max_abs_err": float((got - twin).abs().max()),
                          "shape": list(occ.shape), "scipy_host_s": host_s}
+    if any(assets_name(p) == TRACK for p in maps):
+        for name, o in edt_long_searches(dev).items():
+            same = torch.equal(edt_kernels.edt_transform(o, 1.0),
+                               edt_kernels.edt_reference(o, 1.0))
+            ms = device_ms(lambda o=o: edt_kernels.edt_transform(o, 1.0), EDT_KERNELS)
+            say("edt", f"{name} {o.shape[0]}x{o.shape[1]}: torch.equal to the twin {same}; on "
+                f"the device row kernel {ms['edt_row_kernel']:.5f} ms + column kernel "
+                f"{ms['edt_col_kernel']:.5f} ms = {ms['total']:.5f} ms")
+            if not same:
+                fail(f"edt: {name}: the kernel differs from its twin")
+            rec[name] = {"shape": list(o.shape), "device_ms": ms.pop("total"),
+                         "device_ms_by_kernel": ms}
     return rec
+
+
+def edt_maps() -> list:
+    """The packaged maps kernel E is held on: the 11 tracks, berlin, skirk."""
+    from red_gym_tpu_torch import assets
+
+    return assets.packaged_tracks() + [
+        os.path.join(assets.DATA_DIR, "classic", f"{n}.yaml") for n in ("berlin", "skirk")]
 
 
 def assets_name(path: str) -> str:
@@ -3077,7 +3126,7 @@ def lidar_bitmap_phase(dev, workdir: str) -> dict:
 
 
 ONLY_PHASES = ("trace_fast", "distributed", "profile_components", "scan_error",
-               "generalization", "mpc_demo", "lidar_bitmap", "rasterize")
+               "generalization", "mpc_demo", "lidar_bitmap", "rasterize", "edt")
 
 
 def only_phases(names, dev, ranks: int, workdir: str, kind: str, reports: dict) -> None:
@@ -3104,7 +3153,8 @@ def only_phases(names, dev, ranks: int, workdir: str, kind: str, reports: dict) 
               "mpc_demo": lambda: mpc_demo_phase(dev),
               "lidar_bitmap": lambda: lidar_bitmap_phase(
                   dev, os.path.join(workdir, "lidar_bitmaps")),
-              "rasterize": lambda: rasterize_phase(dev, reports)}
+              "rasterize": lambda: rasterize_phase(dev, reports),
+              "edt": lambda: edt_phase(edt_maps(), dev, reports)}
     for name in names:
         if name in phases:
             phases[name]()
@@ -3201,9 +3251,7 @@ def main() -> None:
     texture_phase(cfg, params.tmap)
     # kernel E on every packaged map (11 tracks, berlin, skirk) and, below,
     # on a generated track
-    edt_maps = assets.packaged_tracks() + [
-        os.path.join(assets.DATA_DIR, "classic", f"{n}.yaml") for n in ("berlin", "skirk")]
-    edt_rec = edt_phase(edt_maps, dev, reports)
+    edt_rec = edt_phase(edt_maps(), dev, reports)
     exact_cfg = dataclasses.replace(cfg, scan_mode="exact")
     march = march_phase(exact_cfg, params, dev, reports)
     mega = mega_phase(cfg, params, dev, reports)

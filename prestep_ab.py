@@ -2,10 +2,10 @@
 """Same-card A/B of one of the port's kernels between another checkout of
 this repository and this one, on an NVIDIA GPU: the pre-scan state kernel
 (``--kernel prestep``, the default), the exact scan's march
-(``--kernel march``) or the rasterizer's fill and segment draw
-(``--kernel raster``).
+(``--kernel march``), the rasterizer's fill and segment draw
+(``--kernel raster``) or the device EDT (``--kernel edt``).
 
-    python3 prestep_ab.py OTHER [--kernel prestep|march|raster] [--json PATH]
+    python3 prestep_ab.py OTHER [--kernel prestep|march|raster|edt] [--json PATH]
 
 ``OTHER`` is a checkout of another commit, for example the parent's
 ``git archive`` unpacked under ``_checkout/``.  Each checkout runs in a
@@ -59,6 +59,20 @@ operand a call of ``raster_kernels.fill_polygon`` or ``draw_segments``:
 - ``equal``: the kernel ``torch.equal`` to its twin (``fill_polygon_reference``
   or ``draw_segments_reference`` on a zero canvas);
 - ``device_ms``, ``window_ms`` and ``launch`` of each, as above.
+
+``--kernel edt``, each operand one ``edt_kernels.edt_transform`` call (kernel
+E: a row kernel, then a column kernel): ``track_0019``; ``stack``, track_0019
+zero-padded to the largest height and width of the packaged maps (the
+multi-map stack's 952 x 947); ``track_wide`` (the largest distances of the
+packaged tracks); ``berlin``; and the long-search grids of
+``chip_smoke.edt_long_searches`` at resolution 1: ``hall_2048`` (walls only
+on the border), ``one_zero_2048`` (one zero pixel at (0, 0)) and
+``free_1024`` (all free):
+
+- ``equal``: the kernel ``torch.equal`` to ``edt_reference``;
+- ``device_ms``: each kernel's own time and their sum (``total``), as above;
+- ``window_ms`` as above, and ``launch``: grid, block and registers of each
+  of the two kernels.
 
 The last line is one JSON object with every number; ``--json`` also writes
 it to a file.
@@ -300,7 +314,49 @@ def measure_raster(root: str) -> dict:
     return res
 
 
-MEASURE = {"prestep": measure_prestep, "march": measure_march, "raster": measure_raster}
+def measure_edt(root: str) -> dict:
+    """Every number of kernel E's A/B of the checkout at ``root``, with its
+    own package."""
+    cs = this_chip_smoke(root)
+    import numpy as np
+    import torch
+
+    from red_gym_tpu_torch import assets
+    from red_gym_tpu_torch.maps import loader
+    from red_gym_tpu_torch.ops import _build, edt_kernels as ek
+
+    if not os.path.abspath(ek.__file__).startswith(os.path.abspath(root)):
+        cs.fail(f"imported {ek.__file__}, not the one under {root}")
+    dev = torch.device("cuda", 0)
+
+    def grid(path, pad=None):
+        occ = loader.load_map_image(path[:-len(".yaml")] + ".png")
+        if pad is not None:
+            occ = np.pad(occ, ((0, pad[0] - occ.shape[0]), (0, pad[1] - occ.shape[1])))
+        return torch.as_tensor(occ, device=dev), float(loader.read_map_yaml(path)["resolution"])
+
+    track = assets.named_map_yaml(cs.TRACK)
+    stack = tuple(map(max, zip(*(loader.load_map_image(p[:-len(".yaml")] + ".png").shape
+                                 for p in cs.edt_maps()))))
+    operands = {"track_0019": grid(track), "stack": grid(track, stack),
+                "track_wide": grid(assets.named_map_yaml("track_wide")),
+                "berlin": grid(os.path.join(assets.DATA_DIR, "classic", "berlin.yaml"))}
+    operands.update({n: (o, 1.0) for n, o in cs.edt_long_searches(dev).items()})
+    res = {"equal": {}, "device_ms": {}, "window_ms": {}, "launch": {}}
+    for name, (o, r) in operands.items():
+        def kernel(o=o, r=r):
+            return ek.edt_transform(o, r)
+
+        res["equal"][name] = bool(torch.equal(kernel(), ek.edt_reference(o, r)))
+        res["device_ms"][name] = cs.device_ms(kernel, cs.EDT_KERNELS)
+        res["window_ms"][name] = cs.median_ms(kernel, cs.TIMING_REPS)
+        res["launch"][name] = {k: launch_shape(kernel, _build.BUILD_DIR, cs, k)
+                               for k in cs.EDT_KERNELS}
+    return res
+
+
+MEASURE = {"prestep": measure_prestep, "march": measure_march, "raster": measure_raster,
+           "edt": measure_edt}
 
 
 def floors(shapes: dict, cs) -> dict:

@@ -3,8 +3,11 @@
 Replaces no TPU kernel: the JAX package's device EDT is two dense min-plus
 passes that XLA fuses (``red_gym_tpu/ops/edt.py:34-75``).  Here the two
 passes are the two launches of ``red_gym_tpu_torch/csrc/edt.cu``: a row pass
-that finds each pixel's nearest zero pixel to its left and right (a block a
-row), and a brute-force column pass (a thread an output pixel).
+that finds each pixel's nearest zero pixel to its left and right (a warp a
+row, the row's zero pixels made 32-bit words by ``__ballot_sync``), and a
+column pass whose search stops once no unread row can lower a pixel's
+minimum (a lane 16 output rows of a column, a warp 32 adjacent columns, 8
+row offsets a step).
 
 :func:`edt_transform` launches the kernel on a CUDA tensor, or raises;
 on a CPU tensor it runs the plain twin :func:`edt_reference`, JAX's chunked

@@ -46,9 +46,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (close_poses, launch_counts, map_free_poses, map_of_stack,
-                        params_of_stack, per_map_poses, random_free_poses, random_states,
-                        reset_launch_counts, to_cpu, vec_hand_loop)
+from chip_smoke import (close_poses, edt_long_searches, launch_counts, map_free_poses,
+                        map_of_stack, params_of_stack, per_map_poses, random_free_poses,
+                        random_states, reset_launch_counts, to_cpu, vec_hand_loop)
 from red_gym_tpu_torch import assets, env, rollout, vec_env
 from red_gym_tpu_torch.config import Integrator, SimConfig
 from red_gym_tpu_torch.maps.loader import load_map, stack_maps
@@ -1556,16 +1556,37 @@ def test_edt_kernel_equals_twin_on_every_map(path):
 @pytest.mark.parametrize("shape, density", [((64, 64), 0.05), ((63, 41), 0.3), ((1, 1), 0.0),
                                             ((9, 11), 0.0), ((9, 11), 1.0), ((2896, 7), 0.01),
                                             ((7, 3000), 0.01), ((1000, 1300), 0.01),
-                                            ((257, 255), 0.5)])
+                                            ((257, 255), 0.5), ((2048, 2048), "hall_2048"),
+                                            ((2048, 2048), "one_zero_2048"),
+                                            ((1024, 1024), "free_1024"), ((300, 257), "rows"),
+                                            ((257, 1100), "cols"), ((120, 801), 0.01),
+                                            ((120, 431), 0.01), ((120, 33), 0.01)])
 def test_edt_kernel_block_edges_and_degenerate_grids(shape, density):
     """Rows and columns around the kernels' blocks and tiles, all-free
-    (JAX's sentinel) and all-occupied grids: torch.equal to the twin."""
+    (JAX's sentinel) and all-occupied grids, the long-search grids of
+    chip_smoke.edt_long_searches, walls only in rows 0 and H - 1 (rows
+    with no zero pixel between them) or only in columns 0 and W - 1, and
+    widths that are no multiple of 4 or 32: torch.equal to the twin, one
+    launch counted."""
     _need_gpu()
     from red_gym_tpu_torch.ops import edt_kernels
 
-    rng = np.random.default_rng(shape[0] * 7 + shape[1])
-    o = torch.as_tensor((rng.random(shape) >= density).astype(np.float32), device="cuda")
-    assert torch.equal(edt_kernels.edt_transform(o, 0.05), edt_kernels.edt_reference(o, 0.05))
+    if density in ("rows", "cols"):
+        o = torch.ones(shape, dtype=torch.float32, device="cuda")
+        if density == "rows":
+            o[[0, -1], :] = 0
+        else:
+            o[:, [0, -1]] = 0
+    elif isinstance(density, str):
+        o = edt_long_searches(torch.device("cuda"))[density]
+    else:
+        rng = np.random.default_rng(shape[0] * 7 + shape[1])
+        o = torch.as_tensor((rng.random(shape) >= density).astype(np.float32), device="cuda")
+    assert tuple(o.shape) == shape
+    before = edt_kernels.edt_transform.launches
+    got = edt_kernels.edt_transform(o, 0.05)
+    assert edt_kernels.edt_transform.launches == before + 1
+    assert torch.equal(got, edt_kernels.edt_reference(o, 0.05))
 
 
 def test_float64_fast_scan_on_gpu_matches_cpu():
