@@ -192,9 +192,9 @@ line:
      berlin, skirk and the generated track: torch.equal to its twin on the
      card and within scipy's bar (rtol 1e-6, atol 1e-5); on track_0019 and
      the largest map its times, each of its two kernels' device ms, bound
-     (the bytes, against the linear operations of a row pass and a
-     per-column lower envelope), registers, spills and scipy's host
-     seconds; on three long-search grids (2048 x 2048 walled only on its
+     (the uint8 mask read and the output written, against the linear
+     operations of a row pass and a per-column lower envelope; D1's round
+     trip apart), registers, spills and scipy's host seconds; on three long-search grids (2048 x 2048 walled only on its
      border, 2048 x 2048 with one zero pixel, 1024 x 1024 all free)
      torch.equal to its twin and each kernel's device ms;
    - [trackgen]: maps.trackgen.generate(seed 0) on the host, load_map with
@@ -2247,16 +2247,18 @@ RACE_STEPS = 200
 
 
 def edt_bound(occ, out) -> dict:
-    """The exact EDT's bound on one map: the occupancy read once, D1
-    written and read once and the output written once, against the linear
-    work of the function (the row pass's EDT_ROW_OPS and a per-column lower
+    """The exact EDT's bound on one map, for the two kernels that are
+    timed: the uint8 zero mask that ``edt_transform`` hands them (a byte a
+    pixel) read once and the output written once, against the linear work
+    of the function (the row pass's EDT_ROW_OPS and a per-column lower
     envelope's EDT_COL_OPS a pixel, one lane instruction each at
-    LANE_OPS_PER_S).  Kernel E's
-    brute-force column pass does H times that column work; the bound
-    counts what the function needs, not what this kernel does."""
+    LANE_OPS_PER_S).  The occupancy's read and the mask's build come before
+    the launches and are not timed.  D1's write and read (8 bytes a pixel)
+    are the two-pass design's traffic, not the function's: they stand apart
+    as ``d1_bytes_ms``, outside the bound."""
     h, w = occ.shape
-    moved = nbytes(occ, out) + 2 * 4 * h * w
-    return bound(moved, lane=(EDT_ROW_OPS + EDT_COL_OPS) * h * w)
+    return {**bound(h * w + nbytes(out), lane=(EDT_ROW_OPS + EDT_COL_OPS) * h * w),
+            "d1_bytes_ms": 1e3 * 2 * 4 * h * w / HBM_BYTES_PER_S}
 
 
 EDT_KERNELS = ("edt_row_kernel", "edt_col_kernel")   # kernel E's two launches
@@ -2278,6 +2280,30 @@ def edt_long_searches(dev) -> dict:
             "free_1024": torch.ones((1024, 1024), dtype=torch.float32, device=dev)}
 
 
+def edt_grid(path: str, dev, pad: tuple | None = None):
+    """One EDT operand from a map's yaml ``path``: its occupancy (numpy,
+    zero-padded, so walled, to ``pad`` = (H, W) where given), the same on
+    ``dev`` and the map's resolution."""
+    import numpy as np
+    import torch
+
+    from red_gym_tpu_torch.maps import loader
+
+    occ = loader.load_map_image(path[:-len(".yaml")] + ".png")
+    if pad is not None:
+        occ = np.pad(occ, ((0, pad[0] - occ.shape[0]), (0, pad[1] - occ.shape[1])))
+    return occ, torch.as_tensor(occ, device=dev), float(loader.read_map_yaml(path)["resolution"])
+
+
+def edt_stack_size(maps: list) -> tuple:
+    """The multi-map stack's padded size: the largest height and width of
+    ``maps`` (yaml paths), 952 x 947 for the packaged tracks."""
+    from red_gym_tpu_torch.maps import loader
+
+    return tuple(map(max, zip(*(loader.load_map_image(p[:-len(".yaml")] + ".png").shape
+                                for p in maps))))
+
+
 def edt_phase(maps: list, dev, reports) -> dict:
     """[edt]: kernel E on each map of ``maps`` (yaml paths): torch.equal to
     its twin on the card, within scipy's bar (rtol 1e-6, atol 1e-5), and
@@ -2293,23 +2319,15 @@ def edt_phase(maps: list, dev, reports) -> dict:
     from scipy.ndimage import distance_transform_edt
 
     from red_gym_tpu_torch import assets
-    from red_gym_tpu_torch.maps import loader
     from red_gym_tpu_torch.ops import edt_kernels
 
-    shapes = {assets_name(p): loader.load_map_image(p[:-5] + ".png").shape for p in maps}
     timed_maps = {TRACK, STACK_NAME}
     rec = {}
     grids = [(p, None) for p in maps]
     if any(assets_name(p) == TRACK for p in maps):
-        # the multi-map stack's padded size: track_0019 zero-padded (walls)
-        # to the largest height and width of the maps
-        grids.append((assets.named_map_yaml(TRACK), tuple(map(max, zip(*shapes.values())))))
+        grids.append((assets.named_map_yaml(TRACK), edt_stack_size(maps)))
     for path, pad in grids:
-        occ = loader.load_map_image(path[:-len(".yaml")] + ".png")
-        if pad is not None:
-            occ = np.pad(occ, ((0, pad[0] - occ.shape[0]), (0, pad[1] - occ.shape[1])))
-        res = float(loader.read_map_yaml(path)["resolution"])
-        o = torch.as_tensor(occ, device=dev)
+        occ, o, res = edt_grid(path, dev, pad)
         got = edt_kernels.edt_transform(o, res)
         twin = edt_kernels.edt_reference(o, res)
         same = torch.equal(got, twin)
@@ -2335,7 +2353,9 @@ def edt_phase(maps: list, dev, reports) -> dict:
             say("edt", f"{name}: on the device row kernel "
                 f"{r['device_ms_by_kernel']['edt_row_kernel']:.5f} ms + column kernel "
                 f"{r['device_ms_by_kernel']['edt_col_kernel']:.5f} ms = "
-                f"{r['device_ms']:.5f} ms")
+                f"{r['device_ms']:.5f} ms, {100 * r['bound_ms'] / r['device_ms']:.1f} % of "
+                f"the bound {r['bound_ms']:.5f} ms (D1's round trip alone "
+                f"{r['d1_bytes_ms']:.5f} ms)")
             rec[name] = {**r, "max_abs_err": float((got - twin).abs().max()),
                          "shape": list(occ.shape), "scipy_host_s": host_s}
     if any(assets_name(p) == TRACK for p in maps):

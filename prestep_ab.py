@@ -318,11 +318,9 @@ def measure_edt(root: str) -> dict:
     """Every number of kernel E's A/B of the checkout at ``root``, with its
     own package."""
     cs = this_chip_smoke(root)
-    import numpy as np
     import torch
 
     from red_gym_tpu_torch import assets
-    from red_gym_tpu_torch.maps import loader
     from red_gym_tpu_torch.ops import _build, edt_kernels as ek
 
     if not os.path.abspath(ek.__file__).startswith(os.path.abspath(root)):
@@ -330,15 +328,10 @@ def measure_edt(root: str) -> dict:
     dev = torch.device("cuda", 0)
 
     def grid(path, pad=None):
-        occ = loader.load_map_image(path[:-len(".yaml")] + ".png")
-        if pad is not None:
-            occ = np.pad(occ, ((0, pad[0] - occ.shape[0]), (0, pad[1] - occ.shape[1])))
-        return torch.as_tensor(occ, device=dev), float(loader.read_map_yaml(path)["resolution"])
+        return cs.edt_grid(path, dev, pad)[1:]
 
     track = assets.named_map_yaml(cs.TRACK)
-    stack = tuple(map(max, zip(*(loader.load_map_image(p[:-len(".yaml")] + ".png").shape
-                                 for p in cs.edt_maps()))))
-    operands = {"track_0019": grid(track), "stack": grid(track, stack),
+    operands = {"track_0019": grid(track), "stack": grid(track, cs.edt_stack_size(cs.edt_maps())),
                 "track_wide": grid(assets.named_map_yaml("track_wide")),
                 "berlin": grid(os.path.join(assets.DATA_DIR, "classic", "berlin.yaml"))}
     operands.update({n: (o, 1.0) for n, o in cs.edt_long_searches(dev).items()})

@@ -65,10 +65,11 @@
 // once, correctly.  Built with -fmad=false (ops/_build.py).  So the kernel
 // is bit-equal to its twin and to JAX.
 //
-// What bounds the function on the H100: its bytes (the occupancy read once,
-// D1 written and read once and the output written once), since an exact EDT
-// needs only a few operations a pixel (a row pass and a lower envelope of
-// parabolas a column).  A brute-force column pass does 2 H^2 W adds and
+// What bounds the function on the H100: its bytes (the uint8 zero mask read
+// once and the output written once, 5 a pixel), since an exact EDT needs
+// only a few operations a pixel (a row pass and a lower envelope of
+// parabolas a column).  D1's write and read (8 bytes a pixel) are this
+// two-pass design's own traffic, beyond that bound.  A brute-force column pass does 2 H^2 W adds and
 // mins (1.41 G on track_0019, H 875 x W 920); this one does 2 adds and mins
 // a (row read, tile row) pair, and reads a tile's column until its search
 // stops, a few steps on a map and up to the whole column on a grid with
