@@ -227,6 +227,15 @@ line:
      episodes x 10 steps, 256 px): march, fill and segment kernels launched
      as expected, the npz with JAX's keys, shapes and dtypes.
 
+11. after the phases of the rest of the package ([trace_fast],
+   [distributed], [profile_components], [scan_error], [generalization],
+   [mpc_demo], [lidar_bitmap]), [draws]: the laws of every random draw of
+   the port (D1-D9 below: the noise pool, pool picks, pool_rot offsets and
+   its reset step, fresh and exact-scan noise, randomize_starts' maps,
+   random_policy, PPO's noise and permutations, SAC's eps and replay
+   indices) on the card at the main path's sizes, each statistic beside
+   its bar (``draws_phase``); any miss fails.
+
 ``--profile`` adds torch.profiler summaries (device kernels and device
 busy time per step) of the default, eager, bilinear, ultra and exact
 paths, of the four multi-map paths and of [vec_env] and [gym_compat], tables of the default, bilinear,
@@ -3145,8 +3154,488 @@ def lidar_bitmap_phase(dev, workdir: str) -> dict:
     return counts
 
 
+# [draws]: the laws of the port's random draws.  Each law function takes a
+# device and the sizes, draws through the port's own functions and returns
+# its statistics, each beside its bar (``stat``); the statistic functions
+# take the draws themselves, so that tests/test_torch_draws.py holds the
+# JAX package's own draws of each law to the same bars on the CPU.  The
+# laws, by label:
+#   D1 env._make_noise_pool: N(0, sigma), bfloat16 storage in float32 runs;
+#   D2 env._noise_rows, "pool" and "pool_rot" without the megakernel: one
+#      row an env a step, uniform on [0, rows), an (E, B) slab;
+#   D3 env._noise_rows, "pool_rot" with the megakernel: one offset a call,
+#      uniform on the multiples of 16, env g on row (g + off) % rows;
+#   D4 the reset step under "pool_rot" (rollout.reset_done): D3 with the
+#      j-th done env for g;
+#   D5 "fresh" scan noise and the exact scan's beam noise: N(0, sigma);
+#   D6 rollout.reset_done(randomize_starts=...): maps uniform on the stack;
+#   D7 rollout.random_policy: steer U(-0.4, 0.4), speed U(1, 8);
+#   D8 PPO: action noise N(0, 1), an epoch's uniform permutation;
+#   D9 SAC: sample_action's N(0, 1), replay indices uniform on [0, size).
+DRAW_STEPS = 200          # steps of pool picks (D2): one pick an env a step
+DRAW_CALLS = 4096         # pool_rot offsets (D3)
+DRAW_RESET_CALLS = 2048   # reset steps under pool_rot (D4)
+DRAW_RESET_DONE = 1500    # done envs of each, more than the pool's rows
+DRAW_EXACT_POSES = 2048   # poses of the float64 exact scan's noise (D5)
+DRAW_EPOCHS = 1024        # PPO epochs of the permutation law (D8)
+DRAW_SAMPLES = 4096       # replay samples of each replay size (D9)
+# the trainers' replays: train_sac_bitmap_scale's 25,000 (batch 64), full,
+# and train_sac_scale's 200,000 (batch 256), three quarters filled
+DRAW_REPLAYS = ((25_000, 25_000, 64), (200_000, 150_000, 256))
+BEAM_MEAN_PICKS = 512     # T of JAX's per-beam mean (tests/test_infra.py:419-426)
+CHI2_1024 = (800.0, 1300.0)  # JAX's band at 1024 pool rows (tests/test_infra.py:416)
+
+
+def stat(name: str, value, bar: str, ok: bool) -> dict:
+    """One statistic of a draw beside its bar."""
+    return {"name": name, "value": value, "bar": bar, "ok": bool(ok)}
+
+
+def below(name: str, value: float, limit: float) -> dict:
+    return stat(name, value, f"< {limit:.6g}", value < limit)
+
+
+def within(name: str, value: float, lo: float, hi: float) -> dict:
+    return stat(name, value, f"in ({lo:.6g}, {hi:.6g})", lo < value < hi)
+
+
+def equal(name: str, value, want) -> dict:
+    return stat(name, value, f"== {want}", value == want)
+
+
+def say_stat(s: dict) -> str:
+    v = s["value"]
+    return f"{s['name']} {v:.6g} {s['bar']}" if isinstance(v, float) else \
+        f"{s['name']} {v} {s['bar']}"
+
+
+def normal_stats(x, sigma: float) -> list:
+    """N(0, sigma) at JAX's bars (tests/test_infra.py:406-407), in float64:
+    |mean| < 4 sigma / sqrt(N) and |std - sigma| < 3 sigma / sqrt(2N - 2)."""
+    flat = x.reshape(-1).double()
+    n = flat.numel()
+    return [below("|mean|", abs(float(flat.mean())), 4 * sigma / math.sqrt(n)),
+            below("|std - sigma|", abs(float(flat.std(correction=0)) - sigma),
+                  3 * sigma / math.sqrt(2 * n - 2))]
+
+
+def chi2_counts(name: str, counts, band=None) -> dict:
+    """chi^2 of bin counts against the uniform law, within ``band`` (by
+    default k +- 5 sqrt(2k), k = bins - 1: 5 standard deviations)."""
+    counts = counts.double()
+    bins = counts.numel()
+    expect = float(counts.sum()) / bins
+    chi2 = float(((counts - expect) ** 2).sum()) / expect
+    k = bins - 1
+    lo, hi = band if band is not None else (k - 5 * math.sqrt(2 * k),
+                                            k + 5 * math.sqrt(2 * k))
+    return within(f"{name} chi2 ({bins} bins)", chi2, lo, hi)
+
+
+def chi2_stat(name: str, values, bins: int, band=None) -> dict:
+    """chi2_counts of integer ``values`` over [0, bins); a value outside
+    that range fails the bar."""
+    import torch
+
+    counts = torch.bincount(values.reshape(-1).long(), minlength=bins)
+    if counts.numel() > bins:
+        return stat(f"{name} chi2 ({bins} bins)", "values outside the bins",
+                    f"in [0, {bins})", False)
+    return chi2_counts(name, counts, band)
+
+
+def uniform_stats(name: str, x, lo: float, hi: float) -> list:
+    """U(lo, hi): mean and variance (float64) within 5 standard errors of
+    the law's, sqrt(w^2 / 12N) and w^2 / sqrt(180N) for w = hi - lo, and
+    every draw in [lo, hi] (compared in the draw's own dtype)."""
+    flat = x.reshape(-1).double()
+    n, w = flat.numel(), hi - lo
+    return [below(f"{name} |mean - mid|", abs(float(flat.mean()) - (lo + hi) / 2),
+                  5 * w / math.sqrt(12 * n)),
+            below(f"{name} |var - w^2/12|", abs(float(flat.var(correction=0)) - w * w / 12),
+                  5 * w * w / math.sqrt(180 * n)),
+            equal(f"{name} outside [{lo}, {hi}]", int(((x < lo) | (x > hi)).sum()), 0)]
+
+
+def rotation_stats(rows, pos, pool_rows: int) -> list:
+    """The pool_rot law of ``rows`` (calls, n), the pool rows that a call's
+    n envs read: call c reads row (pos[j] + off_c) % pool_rows at its j-th
+    env; the offsets off_c are multiples of 16, uniform over the
+    pool_rows / 16 of them; a call reads each row floor or ceil(n /
+    pool_rows) times (distinct rows for n <= pool_rows); and the last env's
+    row is uniform over the rows of its class (pos[-1] mod 16) and never
+    outside it."""
+    import torch
+
+    rows = rows.long()
+    calls, n = rows.shape
+    dev = rows.device
+    pos = torch.as_tensor(pos, device=dev).long()
+    off = (rows[:, 0] - pos[0]) % pool_rows
+    wrong = int((rows != (pos[None, :] + off[:, None]) % pool_rows).sum())
+    per_call = torch.bincount(
+        (rows + pool_rows * torch.arange(calls, device=dev)[:, None]).reshape(-1),
+        minlength=calls * pool_rows).reshape(calls, pool_rows)
+    spread = int((per_call.max(1).values - per_call.min(1).values).max())
+    last = torch.bincount(rows[:, -1], minlength=pool_rows)
+    cls = (torch.arange(pool_rows, device=dev) - pos[-1]) % 16 == 0
+    return [equal("rows off (pos + off) % rows", wrong, 0),
+            equal("offsets off the multiples of 16", int((off % 16 != 0).sum()), 0),
+            chi2_stat("offset / 16", off // 16, pool_rows // 16),
+            below("a call's row-count spread (max - min)", spread, 2),
+            equal("last env's rows off its class", int(last[~cls].sum()), 0),
+            chi2_counts("last env's row in its class", last[cls])]
+
+
+def pick_stats(picks, pool, sigma: float) -> list:
+    """Pool row picks (steps x envs, flat), uniform on the pool's rows:
+    chi^2 within JAX's band at 1024 rows, and the per-beam mean of the pool
+    rows of the first 512 picks within 5 sigma / sqrt(512)
+    (tests/test_infra.py:410-426)."""
+    rows = pool.shape[0]
+    beam_mean = pool[picks[:BEAM_MEAN_PICKS].long()].double().mean(dim=0)
+    return [chi2_stat(f"{picks.numel()} picks", picks, rows,
+                      CHI2_1024 if rows == 1024 else None),
+            below(f"max |per-beam mean| of {BEAM_MEAN_PICKS} picks",
+                  float(beam_mean.abs().max()), 5 * sigma / math.sqrt(BEAM_MEAN_PICKS))]
+
+
+def permutation_stats(perms, minibatches: int) -> list:
+    """Epoch permutations (an iterable of (n,) tensors): each a permutation
+    of 0..n-1, and the minibatch (position // (n // minibatches)) of the
+    first, middle and last sample uniform over the minibatches (chi^2)."""
+    import torch
+
+    bad, where = 0, []
+    for perm in perms:
+        n = perm.numel()
+        picks = torch.tensor([0, n // 2, n - 1], device=perm.device)
+        bad = bad + (torch.bincount(perm, minlength=n) != 1).any()
+        pos = torch.empty_like(perm)
+        pos[perm] = torch.arange(n, device=perm.device)
+        where.append(pos[picks] // (n // minibatches))
+    where = torch.stack(where)
+    return [equal(f"epochs not a permutation of {n}", int(bad), 0),
+            *(chi2_stat(f"sample {int(i)}'s minibatch", where[:, j], minibatches)
+              for j, i in enumerate(picks))]
+
+
+def index_stats(idx, filled: int) -> list:
+    """Replay indices (-1 where a draw read past the filled part): none
+    there, and uniform on [0, filled) (chi^2)."""
+    return [equal(f"samples past the {filled} filled", int((idx < 0).sum()), 0),
+            chi2_stat(f"{idx.numel()} indices", idx.clamp(min=0), filled)]
+
+
+def draw_config(dev, **kw):
+    """(cfg, params) of the port at ``kw``, with params of the exact scan on
+    track_0019: the noise draws read only the params' pool and device, and
+    the exact scan's params carry that pool without a range texture."""
+    from red_gym_tpu_torch import assets, env
+    from red_gym_tpu_torch.config import SimConfig
+
+    cfg = SimConfig(**kw)
+    params = env.make_params(dataclasses.replace(cfg, scan_mode="exact"),
+                             assets.named_map_yaml(TRACK), device=dev)
+    return cfg, params
+
+
+def pool_law(dev, beams: int, rows: int, dtype: str) -> list:
+    """D1: ``env._make_noise_pool``, rows x beams of N(0, sigma) under the
+    fixed seed, stored in bfloat16 in float32 runs, float64 otherwise."""
+    import torch
+
+    from red_gym_tpu_torch import env
+    from red_gym_tpu_torch.config import SimConfig
+
+    cfg = SimConfig(num_beams=beams, dtype=dtype, noise_mode="pool", noise_pool_rows=rows)
+    pool = env._make_noise_pool(cfg, dev)
+    want = torch.bfloat16 if dtype == "float32" else torch.float64
+    return [equal("storage", str(pool.dtype), str(want)),
+            equal("shape", tuple(pool.shape), (rows, beams)),
+            *normal_stats(pool, cfg.scan_noise_std)]
+
+
+def pick_law(dev, envs: int, steps: int, beams: int, rows: int, noise_mode: str,
+             seed: int) -> list:
+    """D2: ``env._noise_rows`` under "pool", or "pool_rot" without the
+    megakernel (the exact scan here): one pool row an env a step, uniform on
+    [0, rows), as an (E, B) slab of the pool's storage dtype that the env's
+    agents share.  The picks are read through a pool whose row r holds r;
+    ``pick_stats`` of the ``steps`` x ``envs`` picks."""
+    import torch
+
+    from red_gym_tpu_torch import env
+
+    cfg, params = draw_config(dev, num_beams=beams, noise_mode=noise_mode,
+                              noise_pool_rows=rows)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise, off = env._noise_rows(cfg, params, envs, gen)
+    labels = params._replace(noise_pool=torch.arange(
+        rows, dtype=torch.float32, device=dev)[:, None].expand(rows, beams))
+    picks, mixed = [], 0
+    for _ in range(steps):
+        lab, _ = env._noise_rows(cfg, labels, envs, gen)
+        mixed += int((lab != lab[:, :1]).any(dim=1).sum())
+        picks.append(lab[:, 0].long())
+    return [equal("slab", (tuple(noise.shape), str(noise.dtype), off),
+                  ((envs, beams), str(params.noise_pool.dtype), None)),
+            equal("slab rows that are not one pool row", mixed, 0),
+            *pick_stats(torch.cat(picks), params.noise_pool, cfg.scan_noise_std)]
+
+
+def rotation_law(dev, envs: int, calls: int, beams: int, rows: int, seed: int) -> list:
+    """D3: ``env._noise_rows`` under "pool_rot" with the megakernel: the
+    whole pool and one offset a call, env g reading pool row
+    ``scan_kernels.pool_rot_rows(envs, rows, off)[g]`` (as the kernel and
+    its twin do), over ``calls`` calls."""
+    import torch
+
+    from red_gym_tpu_torch import env
+    from red_gym_tpu_torch.ops import scan_fast, scan_kernels
+
+    cfg, params = draw_config(dev, num_beams=beams, scan_mode="fast",
+                              noise_mode="pool_rot", noise_pool_rows=rows)
+    if not scan_fast.use_megakernel(cfg):
+        fail("draws: the pool_rot law needs the megakernel's config")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pools, offs = [], []
+    for _ in range(calls):
+        pool, off = env._noise_rows(cfg, params, envs, gen)
+        pools.append(pool is params.noise_pool)
+        offs.append(off)
+    rot = torch.stack([scan_kernels.pool_rot_rows(envs, rows, o) for o in offs])
+    return [equal("calls handing the kernel the whole pool", sum(pools), calls),
+            *rotation_stats(rot, torch.arange(envs), rows)]
+
+
+def reset_rotation_law(cfg, params, envs: int, done_n: int, calls: int,
+                       seed: int) -> list:
+    """D4: the reset step under "pool_rot" with the megakernel
+    (``rollout.reset_done``, which steps the done envs alone): a fixed set
+    of ``done_n`` of ``envs`` envs is done in each of ``calls`` calls, and
+    each call's one draw of ``env._noise_rows`` is recorded.  The j-th done
+    env reads row (j + off') % rows, off' a fresh offset a call.  The JAX
+    package re-steps every env and keeps the done ones, so there done env
+    g reads (g + off') % rows: the residue class differs, the law of the
+    batch does not."""
+    import torch
+
+    from red_gym_tpu_torch import assets, env, rollout
+    from red_gym_tpu_torch.ops import scan_kernels
+
+    dev = params.tables.beam_cosines.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    poses = torch.as_tensor(assets.waypoint_start_poses(TRACK, cfg.num_agents),
+                            dtype=cfg.tdtype, device=dev).expand(envs, -1, -1)
+    state, obs, *_ = rollout.batched_reset(cfg, params, poses, gen)
+    pick = torch.randperm(envs, generator=torch.Generator().manual_seed(seed))
+    done = torch.zeros(envs, dtype=torch.bool)
+    done[pick[:done_n]] = True
+    done = done.to(dev)
+    seen = []
+    draw = env._noise_rows
+
+    def recorded(*args):
+        noise, off = draw(*args)
+        seen.append((args[2], off))
+        return noise, off
+
+    env._noise_rows = recorded
+    try:
+        restarted = [rollout.reset_done(cfg, params, state, obs, done, gen)[2]
+                     for _ in range(calls)]
+    finally:
+        env._noise_rows = draw
+    rot = torch.stack([scan_kernels.pool_rot_rows(done_n, cfg.noise_pool_rows, off)
+                       for _, off in seen])
+    return [equal("reset steps", sum(restarted), calls),
+            equal("draws, each of the done envs alone",
+                  (len(seen), sorted({n for n, _ in seen})), (calls, [done_n])),
+            *rotation_stats(rot, torch.arange(done_n), cfg.noise_pool_rows)]
+
+
+def fresh_law(dev, envs: int, beams: int, seed: int) -> list:
+    """D5: ``env._noise_rows`` under "fresh": an (E, B) slab of N(0, sigma)
+    in the run's dtype, one row an env that its agents share."""
+    import torch
+
+    from red_gym_tpu_torch import env
+
+    cfg, params = draw_config(dev, num_beams=beams, noise_mode="fresh")
+    noise, off = env._noise_rows(cfg, params, envs,
+                                 torch.Generator(device=dev).manual_seed(seed))
+    return [equal("slab", (tuple(noise.shape), str(noise.dtype), off),
+                  ((envs, beams), str(cfg.tdtype), None)),
+            *normal_stats(noise, cfg.scan_noise_std)]
+
+
+def exact_noise_law(dev, poses_n: int, beams: int, seed: int) -> list:
+    """D5: ``ops.scan.scan``'s beam noise, the noisy scan less the clean
+    one in float64 at random free poses: N(0, sigma) a beam."""
+    import torch
+
+    from red_gym_tpu_torch.ops import scan as scan_ops
+
+    cfg, params = draw_config(dev, num_beams=beams, dtype="float64")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    poses = map_free_poses(params.tmap, poses_n, gen)
+    noisy = scan_ops.scan(poses, gen, params.tables, params.tmap, cfg)
+    clean = scan_ops.scan(poses, None, params.tables, params.tmap, cfg)
+    return [equal("shape", tuple(noisy.shape), (poses_n, beams)),
+            *normal_stats(noisy - clean, cfg.scan_noise_std)]
+
+
+def map_draw_law(cfg, params, starts, envs: int, seed: int) -> list:
+    """D6: ``rollout.reset_done(randomize_starts=starts)`` with every env
+    done, on map-stacked params: each env's next map uniform on the M maps
+    (chi^2), and each env restarted at ``starts[m]`` on its map m."""
+    import torch
+
+    from red_gym_tpu_torch import env, rollout
+
+    dev = starts.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m_n = starts.shape[0]
+    midx = (torch.arange(envs, device=dev) % m_n).to(torch.int32)
+    state, obs, *_ = env.reset(cfg, params, starts[midx.long()], gen, map_idx=midx)
+    state, _, restarted = rollout.reset_done(
+        cfg, params, state, obs, torch.ones(envs, dtype=torch.bool, device=dev), gen,
+        randomize_starts=starts)
+    m = state.map_idx.long()
+    off = int((state.start_pose != starts[m.clamp(0, m_n - 1)]).flatten(1).any(1).sum())
+    return [equal("restarted", restarted, True), chi2_stat(f"{envs} maps", m, m_n),
+            equal("envs not at randomize_starts[m]", off, 0)]
+
+
+def random_policy_law(dev, envs: int, agents: int, seed: int) -> list:
+    """D7: ``rollout.random_policy``'s actions for (envs, agents) cars in
+    float32: steer U(-0.4, 0.4), speed U(1, 8)."""
+    import types
+
+    import torch
+
+    from red_gym_tpu_torch import rollout
+    from red_gym_tpu_torch.config import SimConfig
+
+    obs = types.SimpleNamespace(scans=torch.zeros((envs, agents, 1), device=dev))
+    act = rollout.random_policy(SimConfig(num_agents=agents))(
+        obs, torch.Generator(device=dev).manual_seed(seed))
+    return [*uniform_stats("steer", act[..., 0], -0.4, 0.4),
+            *uniform_stats("speed", act[..., 1], 1.0, 8.0)]
+
+
+def ppo_law(dev, envs: int, steps: int, beams: int, epochs: int, seed: int) -> list:
+    """D8: PPO's action noise, read back from ``PPO._policy_step``'s
+    actions as (act - mean) / std, over ``steps`` steps of ``envs`` envs:
+    N(0, 1); and ``agents.ppo.epoch_permutation`` over the steps x envs
+    samples of that rollout in ``epochs`` epochs: ``permutation_stats``."""
+    import types
+
+    import torch
+
+    from red_gym_tpu_torch.agents import ppo as ppo_lib
+
+    cfg, params = draw_config(dev, num_beams=beams)
+    ppo = ppo_lib.PPO(cfg, params)
+    pstate = ppo.init(torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    obs = types.SimpleNamespace(
+        scans=10 * torch.rand((envs, cfg.num_agents, beams), generator=gen, device=dev),
+        linear_vels_x=torch.zeros((envs, cfg.num_agents), device=dev))
+    noise = []
+    with torch.no_grad():
+        for _ in range(steps):
+            act, _, _, feat = ppo._policy_step(pstate.policy, obs, pstate.gen)
+            mean, log_std, _ = ppo._apply(pstate.policy, feat,
+                                          obs.linear_vels_x[:, cfg.ego_idx])
+            noise.append((act - mean) / torch.exp(log_std))
+    perms = (ppo_lib.epoch_permutation(envs * steps, pstate.gen, dev)
+             for _ in range(epochs))
+    return [*normal_stats(torch.stack(noise), 1.0),
+            *permutation_stats(perms, ppo.pcfg.minibatches)]
+
+
+def sac_law(dev, n: int, capacity: int, filled: int, batch: int, samples: int,
+            seed: int) -> list:
+    """D9: ``agents.sac.sample_action``'s eps, read back as atanh of the
+    action of an actor whose mean and log std are 0 (float64): N(0, 1); and
+    ``ReplayBuffer.sample`` of a buffer of ``capacity`` with ``filled``
+    transitions, labelled 1..filled by their reward, over ``samples``
+    batches: ``index_stats``."""
+    import torch
+
+    from red_gym_tpu_torch.agents import sac
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    act, _ = sac.sample_action(lambda o: (torch.zeros_like(o), torch.zeros_like(o)),
+                               torch.zeros((n, 2), dtype=torch.float64, device=dev), gen)
+    buf = sac.ReplayBuffer.create(capacity, (1,), 2, device=dev)
+    buf.push_batch(torch.zeros((filled, 1), dtype=torch.uint8, device=dev),
+                   torch.zeros((filled, 2), device=dev),
+                   torch.arange(1, filled + 1, dtype=torch.float32, device=dev),
+                   torch.zeros((filled, 1), dtype=torch.uint8, device=dev),
+                   torch.zeros(filled, device=dev))
+    idx = torch.cat([buf.sample(gen, batch)[2] for _ in range(samples)]).long() - 1
+    return [*normal_stats(torch.atanh(act), 1.0), *index_stats(idx, filled)]
+
+
+def draws_phase(dev, params) -> None:
+    """[draws]: every law above at the main path's sizes (16384 envs x 2
+    agents x 1080 beams, float32, a pool of 1024 rows); ``params`` are the
+    default path's (track_0019, range texture), which the reset step of D4
+    runs on.  One line a law, each statistic beside its bar; any miss
+    fails, after every law has printed."""
+    import torch
+
+    from red_gym_tpu_torch import assets, env
+    from red_gym_tpu_torch.config import SimConfig
+
+    t0 = time.perf_counter()
+    rows = SimConfig().noise_pool_rows
+    rot_cfg = SimConfig(num_agents=AGENTS, num_beams=BEAMS, scan_mode="fast",
+                        noise_mode="pool_rot")
+    tracks = assets.packaged_tracks()
+    mm_cfg = SimConfig(num_agents=AGENTS, num_beams=BEAMS)
+    laws = [
+        ("D1 pool, float32", lambda: pool_law(dev, BEAMS, rows, "float32")),
+        ("D1 pool, float64", lambda: pool_law(dev, BEAMS, rows, "float64")),
+        ("D2 pool picks", lambda: pick_law(dev, ENVS, DRAW_STEPS, BEAMS, rows, "pool", 1)),
+        ("D2 pool_rot picks without the megakernel",
+         lambda: pick_law(dev, ENVS, DRAW_STEPS, BEAMS, rows, "pool_rot", 2)),
+        ("D3 pool_rot offsets", lambda: rotation_law(dev, ENVS, DRAW_CALLS, BEAMS, rows, 3)),
+        ("D4 pool_rot reset steps",
+         lambda: reset_rotation_law(rot_cfg, params, ENVS, DRAW_RESET_DONE,
+                                    DRAW_RESET_CALLS, 4)),
+        ("D5 fresh noise", lambda: fresh_law(dev, ENVS, BEAMS, 5)),
+        ("D5 exact scan noise, float64",
+         lambda: exact_noise_law(dev, DRAW_EXACT_POSES, BEAMS, 6)),
+        (f"D6 randomize_starts on {len(tracks)} tracks",
+         lambda: map_draw_law(mm_cfg, env.make_multimap_params(mm_cfg, tracks, device=dev),
+                              torch.as_tensor(assets.start_pose_table(tracks, AGENTS),
+                                              dtype=mm_cfg.tdtype, device=dev), ENVS, 7)),
+        ("D7 random_policy", lambda: random_policy_law(dev, ENVS, AGENTS, 8)),
+        ("D8 PPO", lambda: ppo_law(dev, ENVS, 32, BEAMS, DRAW_EPOCHS, 9)),
+        *((f"D9 SAC, replay {cap} ({filled} filled, batch {batch})",
+           functools.partial(sac_law, dev, ENVS * 32, cap, filled, batch, DRAW_SAMPLES,
+                             10 + i))
+          for i, (cap, filled, batch) in enumerate(DRAW_REPLAYS)),
+    ]
+    missed, n_stats = [], 0
+    for label, law in laws:
+        stats = law()
+        n_stats += len(stats)
+        say("draws", f"{label}: " + "; ".join(say_stat(s) for s in stats))
+        missed += [f"{label}: {say_stat(s)}" for s in stats if not s["ok"]]
+    torch.cuda.synchronize()
+    say("draws", f"{len(laws)} laws, {n_stats} statistics, {len(missed)} missed; "
+        f"{time.perf_counter() - t0:.1f} s; {nvidia_smi()}")
+    if missed:
+        fail("draws: " + " | ".join(missed))
+
+
 ONLY_PHASES = ("trace_fast", "distributed", "profile_components", "scan_error",
-               "generalization", "mpc_demo", "lidar_bitmap", "rasterize", "edt")
+               "generalization", "mpc_demo", "lidar_bitmap", "rasterize", "edt", "draws")
 
 
 def only_phases(names, dev, ranks: int, workdir: str, kind: str, reports: dict) -> None:
@@ -3174,7 +3663,10 @@ def only_phases(names, dev, ranks: int, workdir: str, kind: str, reports: dict) 
               "lidar_bitmap": lambda: lidar_bitmap_phase(
                   dev, os.path.join(workdir, "lidar_bitmaps")),
               "rasterize": lambda: rasterize_phase(dev, reports),
-              "edt": lambda: edt_phase(edt_maps(), dev, reports)}
+              "edt": lambda: edt_phase(edt_maps(), dev, reports),
+              "draws": lambda: draws_phase(dev, env.make_params(
+                  SimConfig(num_agents=AGENTS, num_beams=BEAMS, scan_mode="fast"),
+                  assets.named_map_yaml(TRACK), device=dev))}
     for name in names:
         if name in phases:
             phases[name]()
@@ -3386,6 +3878,8 @@ def main() -> None:
     gen_counts = generalization_phase(dev)
     mpc_demo_phase(dev)
     lidar_counts = lidar_bitmap_phase(dev, os.path.join(workdir, "lidar_bitmaps"))
+    # the laws of the random draws, the reset step's on the default texture
+    draws_phase(dev, params)
 
     mega_src = {"route": "cuda", "source": "red_gym_tpu_torch/csrc/mega_edge_ttc.cu",
                 "replaces": "red_gym_tpu/ops/pallas_scan.py:1027"}

@@ -167,6 +167,13 @@ def gaussian_logp(mean, log_std, act):
                      - log_std - 0.5 * math.log(2 * math.pi), dim=-1)
 
 
+def epoch_permutation(n: int, gen: torch.Generator, device) -> torch.Tensor:
+    """An epoch's order of the n samples, uniform over the permutations (JAX:
+    ``jax.random.permutation``, red_gym_tpu/agents/ppo.py:356); minibatch i
+    takes the samples at positions [i * mb, (i + 1) * mb)."""
+    return torch.randperm(n, generator=gen, device=device)
+
+
 def progress_collision_reward(speed_coef: float = 1.0,
                               collision_penalty: float = 10.0):
     """Default PPO shaping: forward progress minus a crash penalty (the
@@ -232,8 +239,9 @@ class PPO:
     ``make_rollout``), so a done env gets the same restarted state without a
     second step of every env.  Under ``noise_mode="pool_rot"`` the j-th done
     env reads pool row (j + off') % rows, counted within the done envs, not
-    its row in the full batch.  Which draws land where differs from JAX;
-    their distribution does not."""
+    its row in the full batch, so its class of rows mod 16 differs from
+    JAX's.  Which draws land where differs from JAX; the law of a batch
+    does not (``rollout.make_rollout``)."""
 
     def __init__(self, cfg: SimConfig, env_params: EnvParams,
                  pcfg: PPOConfig = PPOConfig(), policy: nn.Module | None = None,
@@ -433,7 +441,7 @@ class PPO:
         policy, opt = pstate.policy, pstate.optimizer
         losses = []
         for ep in range(self.pcfg.epochs):
-            perm = (torch.randperm(n, generator=pstate.gen, device=adv.device)
+            perm = (epoch_permutation(n, pstate.gen, adv.device)
                     if _perms is None else _perms[ep])
             for i in range(self.pcfg.minibatches):
                 idx = perm[i * mb:(i + 1) * mb]

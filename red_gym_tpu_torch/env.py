@@ -260,17 +260,20 @@ def state_kernel_pack(cfg: SimConfig, params: EnvParams, midx=None):
 
 
 def _noise_rows(cfg: SimConfig, params: EnvParams, e_n: int, gen):
-    """This step's scan noise -> (noise, pool_off): one row per env (E, B),
-    a row of the pool (bfloat16 storage, read by the kernels as is) or a
-    fresh draw, with pool_off None.  Under "pool_rot" with the megakernel
-    resolving on: the whole (rows, B) pool and one draw pool_off (1,) int32
-    on the device, env g reading pool row (g + (pool_off & ~15)) % rows
-    (scan_kernels.pool_rot_rows), the counterpart of the JAX package's
-    env-0 draw; without the megakernel, "pool_rot" picks one pool row per
-    env as "pool" does, as the JAX package does.  Inside
-    ``parallel.draws.row_draws`` every draw is made for all ranks' envs and
-    this rank keeps its rows; "pool_rot" then hands the megakernel its
-    rows of the pool as a slab (the plain variant)."""
+    """This step's scan noise -> (noise, pool_off): one row per env (E, B)
+    that the env's agents share, with pool_off None.  Under "pool" (and
+    "pool_rot" without the megakernel, as in the JAX package) the row is a
+    pool row uniform on [0, rows), in the pool's storage dtype (bfloat16
+    in float32 runs, read by the kernels as is); under "fresh" a draw of
+    N(0, scan_noise_std).  Under "pool_rot" with the megakernel resolving
+    on: the whole (rows, B) pool and one draw pool_off (1,) int32 on the
+    device, uniform on [0, rows), the counterpart of the JAX package's
+    env-0 draw; env g reads pool row (g + (pool_off & ~15)) % rows
+    (scan_kernels.pool_rot_rows), uniform over the rows / 16 rows of its
+    class g mod 16, and the rows of one call are distinct for E <= rows.
+    Inside ``parallel.draws.row_draws`` every draw is made for all ranks'
+    envs and this rank keeps its rows; "pool_rot" then hands the megakernel
+    its rows of the pool as a slab (the plain variant)."""
     device = params.tables.beam_cosines.device
     if cfg.scan_noise_std <= 0:
         return torch.zeros((e_n, cfg.num_beams), dtype=cfg.tdtype,

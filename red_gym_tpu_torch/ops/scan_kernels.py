@@ -80,7 +80,11 @@ def pool_rot_rows(e_n: int, pool_rows: int, pool_off):
     """Pool row of each of e_n envs under ``noise_mode="pool_rot"``: env g
     reads row (g + (pool_off & ~15)) % pool_rows.  The 16-row quantization
     of the offset is the TPU kernel's (pallas_scan.py:1000), kept so that
-    the two packages mean the same thing.  Stays on the device."""
+    the two packages mean the same thing.  With pool_off uniform on
+    [0, pool_rows) and pool_rows a multiple of 16, env g's row is uniform
+    over the pool_rows / 16 rows of its class g mod 16; one call's rows are
+    distinct for e_n <= pool_rows, each read floor or ceil(e_n / pool_rows)
+    times past that.  Stays on the device."""
     off = pool_off.reshape(-1)[:1].to(torch.int64) & ~15
     return (torch.arange(e_n, device=pool_off.device) + off) % pool_rows
 

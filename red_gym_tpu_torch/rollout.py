@@ -152,15 +152,21 @@ def make_rollout(cfg: SimConfig, params: EnvParams,
 
     Random streams.  The JAX package draws a map for every env from a
     split key and keeps the done envs' draws; here only the done envs
-    draw, in env order, from ``gen``.  Under ``noise_mode="pool_rot"`` env
-    g of a step call reads pool row (g + off) % rows, g counted within the
-    batch passed in.  The reset step passes only the done envs, so the j-th
-    of them reads row (j + off') % rows with a fresh offset off' of its
-    own.  The JAX package re-steps every env and keeps the done ones, so
-    there the j-th done env reads its position in the full batch.  The
-    differences are in which maps and rows are drawn, not in their
-    distribution: maps uniform, one shared pool offset per call, distinct
-    rows within the call."""
+    draw, in env order, from ``gen``; in both each done env's map is
+    uniform on the M maps.  Under ``noise_mode="pool_rot"`` with the
+    megakernel a step call draws one offset off, uniform on the multiples
+    of 16 in [0, rows), and env g of the batch passed in reads pool row
+    (g + off) % rows: uniform over the rows / 16 rows of its class g mod
+    16, the call's rows distinct for no more envs than rows.  The reset
+    step passes only the done envs, so the j-th of them reads row
+    (j + off') % rows with a fresh offset off' of its own, uniform over
+    the class j mod 16.  The JAX package re-steps every env and keeps the
+    done ones, so there done env g reads (g + off') % rows, uniform over
+    the class g mod 16.  So a done env's class of rows differs from JAX's;
+    the law of a batch does not: maps uniform, one offset a call uniform
+    on the multiples of 16, rows distinct within a call
+    (``tests/test_torch_draws.py``; ``chip_smoke.py [draws]`` on the
+    card)."""
     if randomize_starts is not None:
         if map_axis is not None:
             raise ValueError("randomize_starts needs map_idx envs, not map_axis")
