@@ -121,6 +121,8 @@ line:
      timed ones: collect env-steps/s, update ms, iteration env-steps/s and
      peak memory; the loss finite, the params changed, kernel 4 launched
      collect steps + reset steps times, prestep and every other kernel 0;
+     the update's diagnostics (approx KL, clip fraction, log_std, value
+     loss, gradient norm) of each timed iteration printed and finite;
    - ppo_ultra: one iteration of --ultra, kernel 5 counted the same way;
    - ppo_multimap_pursuit: one iteration on the 11 stacked tracks with
      pure_pursuit_opponents_multi (kernel 4); the opponents of the envs
@@ -1529,6 +1531,11 @@ def ppo_phase(params, dev, profile: bool):
     check_counts("ppo", counts, ("theta_shuffle_blend_edge_ttc_opp",), steps + resets)
     if not all(math.isfinite(m["loss"]) for m in lines):
         fail(f"ppo: non-finite loss {lines}")
+    from red_gym_tpu_torch.agents.ppo import DIAGNOSTICS
+    diag = {k: [m[k] for m in lines] for k in DIAGNOSTICS}
+    say("ppo", f"update diagnostics of the {PPO_ITERS} timed iterations: {diag}")
+    if not all(math.isfinite(v) for vals in diag.values() for v in vals):
+        fail(f"ppo: a non-finite update diagnostic {diag}")
     after = pstate.policy.state_dict()
     if all(torch.equal(before[k], after[k]) for k in before):
         fail("ppo: no parameter moved in the timed iterations")

@@ -218,6 +218,21 @@ def pure_pursuit_opponents_multi(stacked_ppp: pp.PurePursuitParams):
     return plan_all
 
 
+# the update's statistics that are sums over a rank's samples (all-reduced
+# on a mesh), and every diagnostic train_step reports beside JAX's metrics,
+# in the order of train_ppo's CSV columns (log_std: one entry an action)
+LOCAL_STATS = ("value_loss", "approx_kl", "clip_frac")
+DIAGNOSTICS = ("approx_kl", "clip_frac", "log_std_0", "log_std_1", "value_loss",
+               "grad_norm")
+
+
+def grad_norm(policy: nn.Module) -> torch.Tensor:
+    """The global L2 norm of the policy's gradients."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(q.grad) for q in policy.parameters()
+         if q.grad is not None]))
+
+
 class PPO:
     """Ego-agent PPO over batched envs.  Opponents act through the
     ``opponent_plan`` hook, fn(obs, map_idx) -> (E, A, 2) controls for all
@@ -382,12 +397,15 @@ class PPO:
 
     def _loss(self, policy, batch, mb: int | None = None):
         """The PPO loss of a minibatch of ``mb`` samples (default: all of
-        ``batch``) -> (loss, {"pg", "vf", "ratio"}).  The advantages are
-        normalised by the minibatch's mean and population std (JAX's
-        ``adv.std()``), each term is a sum over ``mb``.  On a mesh ``batch``
-        holds this rank's samples of the minibatch: the statistics are
-        all-reduced and the entropy term, every rank's, is taken a P-th, so
-        the ranks' losses and gradients sum to one process's."""
+        ``batch``) -> (loss, {"pg", "vf", "ratio", "kl", "clip"}).  The
+        advantages are normalised by the minibatch's mean and population std
+        (JAX's ``adv.std()``), each term is a sum over ``mb``.  ``kl`` is the
+        approximate KL ``(r - 1) - log r`` and ``clip`` the share of samples
+        with ``|r - 1| > clip_eps``, both over ``mb`` and outside the graph.
+        On a mesh ``batch`` holds this rank's samples of the minibatch: the
+        statistics are all-reduced and the entropy term, every rank's, is
+        taken a P-th, so the ranks' losses and gradients sum to one
+        process's."""
         feats, vels, acts, logp_old, adv, returns = batch
         mb = adv.shape[0] if mb is None else mb
         world = 1 if self.mesh is None else self.mesh.world_size
@@ -396,14 +414,18 @@ class PPO:
         adv_n = (adv - adv_mean) / (adv_std + 1e-8)
         p = self.pcfg
         mean, log_std, value = self._apply(policy, feats, vels)
-        ratio = torch.exp(gaussian_logp(mean, log_std, acts) - logp_old)
+        log_ratio = gaussian_logp(mean, log_std, acts) - logp_old
+        ratio = torch.exp(log_ratio)
         pg = -torch.minimum(ratio * adv_n,
                             torch.clamp(ratio, 1 - p.clip_eps, 1 + p.clip_eps) * adv_n)
         pg = pg.sum() / mb
         vf = (0.5 * (value - returns) ** 2).sum() / mb
         ent = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e))
         loss = pg + p.vf_coef * vf - p.ent_coef * ent / world
-        return loss, {"pg": pg, "vf": vf, "ratio": ratio.sum() / mb}
+        with torch.no_grad():
+            kl = ((ratio - 1) - log_ratio).sum() / mb
+            clip = ((ratio - 1).abs() > p.clip_eps).to(ratio.dtype).sum() / mb
+        return loss, {"pg": pg, "vf": vf, "ratio": ratio.sum() / mb, "kl": kl, "clip": clip}
 
     def _reduce_grads(self, policy, loss):
         """SUM the ranks' gradients and their ``loss`` in one all-reduce ->
@@ -424,11 +446,15 @@ class PPO:
     def _update(self, pstate: PPOState, traj: Trajectory, last_value, _perms=None):
         """GAE, then pcfg.epochs epochs of pcfg.minibatches Adam steps on
         minibatches of a fresh permutation of all T*E samples each
-        (``_perms[epoch]`` in place of the draw, for the tests) -> the mean
-        minibatch loss.  On a mesh the permutation is over every rank's
-        samples (the generator is replicated) and each rank keeps those of
-        its rows [lo, lo + e): global sample g is env g % (e P) of step
-        g // (e P)."""
+        (``_perms[epoch]`` in place of the draw, for the tests) -> the means
+        over the minibatches of: "loss", "value_loss", "approx_kl",
+        "clip_frac" (``_loss``'s vf, kl and clip) and "grad_norm" (the
+        gradient's global norm before Adam).  On a mesh the permutation is
+        over every rank's samples (the generator is replicated) and each
+        rank keeps those of its rows [lo, lo + e): global sample g is env g %
+        (e P) of step g // (e P).  There "loss" and "grad_norm" are global,
+        and "value_loss", "approx_kl" and "clip_frac" this rank's share,
+        which ``train_step`` all-reduces."""
         adv, returns = self._gae(traj.values, traj.rewards, traj.dones, last_value)
         t, e = traj.rewards.shape
         data = [x.reshape((t * e,) + x.shape[2:]) for x in
@@ -439,7 +465,8 @@ class PPO:
         n = t * e_all
         mb = n // self.pcfg.minibatches
         policy, opt = pstate.policy, pstate.optimizer
-        losses = []
+        stats = {k: [] for k in ("loss", "value_loss", "approx_kl", "clip_frac",
+                                 "grad_norm")}
         for ep in range(self.pcfg.epochs):
             perm = (epoch_permutation(n, pstate.gen, adv.device)
                     if _perms is None else _perms[ep])
@@ -449,21 +476,27 @@ class PPO:
                     env = idx % e_all
                     idx = idx[(env >= lo) & (env < lo + e)]
                     idx = (idx // e_all) * e + (idx % e_all - lo)
-                loss, _ = self._loss(policy, [x[idx] for x in data], mb)
+                loss, aux = self._loss(policy, [x[idx] for x in data], mb)
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
-                losses.append(self._reduce_grads(policy, loss))
+                stats["loss"].append(self._reduce_grads(policy, loss))
+                stats["grad_norm"].append(grad_norm(policy))
                 opt.step()
-        return torch.stack(losses).mean()
+                stats["value_loss"].append(aux["vf"].detach())
+                stats["approx_kl"].append(aux["kl"])
+                stats["clip_frac"].append(aux["clip"])
+        return {k: torch.stack(v).mean() for k, v in stats.items()}
 
     def train_step(self, pstate: PPOState, env_states, obs, env_params=None):
         """One PPO iteration: collect, GAE, minibatch epochs.  Updates the
         policy and optimizer of ``pstate`` in place -> (pstate, env_states,
         obs, metrics): JAX's four metrics (loss, reward_mean, done_rate,
-        speed_mean) and reset_steps (steps that restarted some env), all
-        tensors on the device; nothing here waits for the device.  On a
-        mesh, the metrics are those of every rank's envs; the collectives
-        of the update and of the resets wait for the other ranks."""
+        speed_mean), reset_steps (steps that restarted some env) and the
+        diagnostics of ``DIAGNOSTICS`` (the update's means of ``_update``
+        and the policy's ``log_std`` entries after the update), all tensors
+        on the device; nothing here waits for the device.  On a mesh, the
+        metrics are those of every rank's envs; the collectives of the
+        update and of the resets wait for the other ranks."""
         env_states, obs, traj = self.collect(pstate, env_states, obs, env_params)
         ego = self.cfg.ego_idx
         with torch.no_grad():
@@ -471,19 +504,28 @@ class PPO:
                                            self._featurize(obs.scans[:, ego]),
                                            obs.linear_vels_x[:, ego])
         with record_function("ppo/update"):
-            loss = self._update(pstate, traj, last_value)
-        # the metrics of every rank's envs: their sums and each step's done
-        # count, in one all-reduce on a mesh
+            upd = self._update(pstate, traj, last_value)
+        # the metrics of every rank's envs: their sums, the update's shares
+        # and each step's done count, in one all-reduce on a mesh
         t, e = traj.rewards.shape
         f64 = torch.float64
+        shares = torch.stack([upd[k] for k in LOCAL_STATS])
         sums = self._allsum(torch.cat([
             torch.stack([traj.rewards.sum(dtype=f64), traj.dones.sum(dtype=f64),
                          traj.vels.sum(dtype=f64)]),
-            traj.dones.sum(1, dtype=f64)]))
+            shares.to(f64), traj.dones.sum(1, dtype=f64)]))
         n = t * e * (1 if self.mesh is None else self.mesh.world_size)
-        metrics = {"loss": loss,
+        k = len(LOCAL_STATS)
+        metrics = {"loss": upd["loss"],
                    "reward_mean": (sums[0] / n).to(traj.rewards.dtype),
                    "done_rate": (sums[1] / n).to(traj.dones.dtype),
                    "speed_mean": (sums[2] / n).to(traj.vels.dtype),
-                   "reset_steps": (sums[3:] > 0).sum()}
+                   "reset_steps": (sums[3 + k:] > 0).sum()}
+        # the diagnostics: they read the update and draw nothing
+        metrics.update({name: sums[3 + i].to(shares.dtype)
+                        for i, name in enumerate(LOCAL_STATS)})
+        metrics["grad_norm"] = upd["grad_norm"]
+        log_std = getattr(pstate.policy, "log_std", None)
+        if log_std is not None:
+            metrics.update({f"log_std_{i}": v for i, v in enumerate(log_std.detach().clone())})
         return pstate, env_states, obs, metrics

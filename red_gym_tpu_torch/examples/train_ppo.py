@@ -43,11 +43,14 @@ import time
 import torch
 
 from red_gym_tpu_torch import assets, env as envlib, rollout
-from red_gym_tpu_torch.agents.ppo import PPO, PPOConfig
+from red_gym_tpu_torch.agents.ppo import DIAGNOSTICS, PPO, PPOConfig
 from red_gym_tpu_torch.config import Integrator, SimConfig, resolve_device
 from red_gym_tpu_torch.parallel import distributed as pdist, draws, sharding as sh
 from red_gym_tpu_torch.utils import checkpoint as ckpt
 
+# JAX's seven columns (examples/train_ppo.py), then the update's diagnostics
+CSV_COLUMNS = ("iter", "env_steps", "loss", "reward_mean", "done_rate", "speed_mean",
+               "wall_s") + DIAGNOSTICS
 SECTIONS = ("ppo/policy", "ppo/env_step", "ppo/opponents", "ppo/reset", "ppo/update")
 
 
@@ -97,7 +100,9 @@ def parse_args(argv=None):
                     help="seed for env resets and policy init")
     ap.add_argument("--log-csv", type=str, default=None,
                     help="write per-iteration metrics (iter, env_steps, loss, "
-                         "reward_mean, done_rate, speed_mean, wall_s) to this CSV")
+                         "reward_mean, done_rate, speed_mean, wall_s, then the update's "
+                         "diagnostics approx_kl, clip_frac, log_std_0, log_std_1, "
+                         "value_loss, grad_norm) to this CSV")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device; 'cuda' (the default) needs a GPU and does not "
                          "fall back to the CPU. Under torchrun each rank takes "
@@ -288,7 +293,7 @@ def run(args, device, distributed: bool):
     csv_f = None
     if args.log_csv and lead:
         csv_f = open(args.log_csv, "w")
-        csv_f.write("iter,env_steps,loss,reward_mean,done_rate,speed_mean,wall_s\n")
+        csv_f.write(",".join(CSV_COLUMNS) + "\n")
     try:
         steps_per_iter = args.envs * args.rollout
         t_start = time.time()
@@ -311,7 +316,9 @@ def run(args, device, distributed: bool):
                             f"{float(metrics['reward_mean']):.6f},"
                             f"{float(metrics['done_rate']):.6f},"
                             f"{float(metrics['speed_mean']):.4f},"
-                            f"{time.time() - t_start:.2f}\n")
+                            f"{time.time() - t_start:.2f},"
+                            + ",".join(f"{float(metrics[k]):.6g}" for k in DIAGNOSTICS)
+                            + "\n")
                 csv_f.flush()
             if args.ckpt_every and (it + 1) % args.ckpt_every == 0:
                 checkpoint(it + 1)

@@ -186,7 +186,7 @@ def worker(argv=None):
     torch.set_num_threads(1)
 
     from red_gym_tpu_torch import assets, env as envlib, rollout
-    from red_gym_tpu_torch.agents.ppo import PPO, PPOConfig, ScanPolicy
+    from red_gym_tpu_torch.agents.ppo import DIAGNOSTICS, PPO, PPOConfig, ScanPolicy
     from red_gym_tpu_torch.config import Integrator, SimConfig
     from red_gym_tpu_torch.parallel import distributed as dist, sharding as sh
     from red_gym_tpu_torch.utils import checkpoint as ckpt
@@ -226,7 +226,7 @@ def worker(argv=None):
             args.ckpt_dir, like={"pstate": pstate, "states": states, "obs": obs}, mesh=mesh)
         pstate, states, obs = tree["pstate"], tree["states"], tree["obs"]
 
-    losses, rewards, checksums, resets = [], [], [], []
+    losses, rewards, checksums, resets, diags = [], [], [], [], []
     for t in range(start_step, args.steps):
         if t == args.die_at and args.rank == args.world - 1:
             sys.stdout.flush()
@@ -236,6 +236,7 @@ def worker(argv=None):
         rewards.append(float(metrics["reward_mean"]))
         resets.append(int(metrics["reset_steps"]))
         checksums.append(_checksum(pstate.policy))
+        diags.append({k: float(metrics[k]) for k in DIAGNOSTICS})
         if args.ckpt_every and (t + 1) % args.ckpt_every == 0 \
                 and (args.die_at < 0 or t + 1 <= args.die_at):
             ckpt.save_shards(args.ckpt_dir, {"pstate": pstate, "states": states,
@@ -243,7 +244,7 @@ def worker(argv=None):
     with open(args.out, "w") as f:
         json.dump({"world": dist.world_size(), "rank": dist.rank(),
                    "start_step": start_step, "losses": losses, "rewards": rewards,
-                   "checksums": checksums, "resets": resets,
+                   "checksums": checksums, "resets": resets, "diagnostics": diags,
                    "checksum_before": checksum0}, f)
     dist.shutdown()
 
@@ -345,6 +346,24 @@ def test_twenty_steps_of_p_ranks_match_one_process(runs, tag):
         _close(r["checksums"], one["checksums"])
         _close(r["rewards"], one["rewards"], rtol=1e-6)
         assert r["resets"] == one["resets"]
+
+
+@pytest.mark.parametrize("tag", ["p2", "p4"])
+def test_update_diagnostics_of_p_ranks_match_one_process(runs, tag):
+    """The update's diagnostics (approx KL, clip fraction, value loss and
+    the gradient's norm, each a mean over the minibatches, and log_std)
+    all-reduced over the ranks equal one process's over the same envs,
+    float64, rtol 1e-9 (the KL, a mean of terms of about 1e-6, also atol
+    1e-15); every rank reports the same."""
+    one, ranks = runs["p1"][0]["diagnostics"], [r["diagnostics"] for r in runs[tag]]
+    assert len(one) == STEPS
+    assert all(d["approx_kl"] > 0 and d["grad_norm"] > 0 for d in one), one
+    for r in ranks:
+        assert r == ranks[0]
+        for a, b in zip(r, one):
+            assert set(a) == set(b)
+            for k in a:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-9, atol=1e-15, err_msg=k)
 
 
 @pytest.mark.parametrize("case", ["pool", "fresh", "pool_rot"])

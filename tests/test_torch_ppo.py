@@ -310,7 +310,7 @@ def test_one_update_matches_jax(exact64):
 
     pstate = _port_state(tpol)
     t_traj = tppo.Trajectory(*map(_t, traj))
-    loss = tx._update(pstate, t_traj, _t(last), _perms=perms)
+    loss = tx._update(pstate, t_traj, _t(last), _perms=perms)["loss"]
     _rel(loss, np.mean(losses))
     want = interop.policy_from_numpy(_np_tree(params))
     for name, p in tpol.named_parameters():
@@ -484,7 +484,7 @@ def test_train_step_updates_params_and_reports_metrics():
     before = {k: v.clone() for k, v in pstate.policy.state_dict().items()}
     pstate2, state2, obs2, metrics = ppo.train_step(pstate, state, obs)
     assert set(metrics) == {"loss", "reward_mean", "done_rate", "speed_mean",
-                            "reset_steps"}
+                            "reset_steps", *tppo.DIAGNOSTICS}
     assert all(isinstance(v, torch.Tensor) for v in metrics.values())
     assert np.isfinite(float(metrics["loss"]))
     after = pstate2.policy.state_dict()
@@ -590,7 +590,8 @@ def test_train_ppo_cli_runs_on_cpu(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = csv.read_text().splitlines()
-    assert lines[0] == "iter,env_steps,loss,reward_mean,done_rate,speed_mean,wall_s"
+    assert lines[0] == ("iter,env_steps,loss,reward_mean,done_rate,speed_mean,wall_s,"
+                        "approx_kl,clip_frac,log_std_0,log_std_1,value_loss,grad_norm")
     assert len(lines) == 3 and lines[2].startswith("1,64,")
     assert "iter 1: loss=" in out.stdout and ckpt.exists()
     out = subprocess.run(base + ["--eval", "--eval-steps", "5"], cwd=ROOT, env=env,
