@@ -122,7 +122,9 @@ line:
      peak memory; the loss finite, the params changed, kernel 4 launched
      collect steps + reset steps times, prestep and every other kernel 0;
      the update's diagnostics (approx KL, clip fraction, log_std, value
-     loss, gradient norm) of each timed iteration printed and finite;
+     loss, gradient norm) of each timed iteration printed and finite; each
+     rollout's action noise the last one's shifted by the epochs (JAX's
+     key chain);
    - ppo_ultra: one iteration of --ultra, kernel 5 counted the same way;
    - ppo_multimap_pursuit: one iteration on the 11 stacked tracks with
      pure_pursuit_opponents_multi (kernel 4); the opponents of the envs
@@ -1507,11 +1509,12 @@ def ppo_phase(params, dev, profile: bool):
     base = torch.cuda.memory_allocated(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    resets, lines = 0, []
+    resets, lines, windows = 0, [], [pstate.noise]
     for _ in range(PPO_ITERS):
         pstate, states, obs, metrics = ppo.train_step(pstate, states, obs)
         resets += int(metrics["reset_steps"])
         lines.append({k: round(float(v), 6) for k, v in metrics.items()})
+        windows.append(pstate.noise)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
@@ -1536,6 +1539,15 @@ def ppo_phase(params, dev, profile: bool):
     say("ppo", f"update diagnostics of the {PPO_ITERS} timed iterations: {diag}")
     if not all(math.isfinite(v) for vals in diag.values() for v in vals):
         fail(f"ppo: a non-finite update diagnostic {diag}")
+    # JAX's key chain: each rollout reuses the last one's action noise
+    # shifted by the epochs, and draws only its last `epochs` steps
+    k = ppo.pcfg.epochs
+    shifted = [torch.equal(b[:-k], a[k:]) and not torch.equal(b[-k:], a[-k:])
+               for a, b in zip(windows, windows[1:])]
+    say("ppo", f"action noise of each timed rollout = the last one's shifted by {k} "
+        f"steps, its last {k} steps new: {shifted}")
+    if not all(shifted):
+        fail(f"ppo: the action noise does not follow JAX's key chain: {shifted}")
     after = pstate.policy.state_dict()
     if all(torch.equal(before[k], after[k]) for k in before):
         fail("ppo: no parameter moved in the timed iterations")
@@ -3553,7 +3565,7 @@ def ppo_law(dev, envs: int, steps: int, beams: int, epochs: int, seed: int) -> l
     noise = []
     with torch.no_grad():
         for _ in range(steps):
-            act, _, _, feat = ppo._policy_step(pstate.policy, obs, pstate.gen)
+            act, _, _, feat, _ = ppo._policy_step(pstate.policy, obs, pstate.gen)
             mean, log_std, _ = ppo._apply(pstate.policy, feat,
                                           obs.linear_vels_x[:, cfg.ego_idx])
             noise.append((act - mean) / torch.exp(log_std))

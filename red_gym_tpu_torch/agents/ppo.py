@@ -141,6 +141,10 @@ class PPOState(NamedTuple):
     policy: nn.Module                   # the learning policy, on the envs' device
     optimizer: torch.optim.Optimizer    # Adam over its parameters
     gen: torch.Generator                # every random draw of training
+    # the last rollout's action noise (T, E, action_dim), which the next
+    # rollout shifts by pcfg.epochs steps (PPO, "Random streams"); None
+    # before the first
+    noise: torch.Tensor | None = None
 
 
 class Trajectory(NamedTuple):
@@ -153,6 +157,7 @@ class Trajectory(NamedTuple):
     values: torch.Tensor
     rewards: torch.Tensor  # float32
     dones: torch.Tensor    # float32 0/1
+    noise: torch.Tensor | None = None  # the action noise of each step (T, E, 2)
 
 
 def action_to_control(act, pcfg: PPOConfig, dtype):
@@ -247,8 +252,16 @@ class PPO:
 
     Random streams.  JAX splits a key per step for the actions and the
     resets, and its ``collect`` steps every env once more from its start
-    pose, keeping the done ones (red_gym_tpu/agents/ppo.py:280-290).  Here
-    one device generator draws, per step, the action noise, the env step's
+    pose, keeping the done ones (red_gym_tpu/agents/ppo.py:280-290).
+    JAX's ``train_step`` hands its state's key to ``collect`` and splits
+    that same key again for its epochs (:338-351).  As ``split(k, n)[j]``
+    does not depend on n (``jax_threefry_partitionable``, JAX's default
+    since 0.5), the key it returns is ``collect``'s key after pcfg.epochs
+    steps: iteration i+1's action noise at step t is iteration i's at step
+    t + epochs, env by env, and only the last pcfg.epochs steps of a
+    rollout draw new noise.  The port keeps the last rollout's noise
+    (``PPOState.noise``) and shifts it the same way.  Apart from that, one
+    device generator draws, per step, the new action noise, the env step's
     scan noise, then, only when some env is done, the reset step's scan
     noise for the done envs alone (``rollout.reset_done``, shared with
     ``make_rollout``), so a done env gets the same restarted state without a
@@ -314,15 +327,18 @@ class PPO:
         return PPOState(policy, opt, torch.Generator(device=self.device).manual_seed(seed))
 
     # -- rollout collection ---------------------------------------------------
-    def _policy_step(self, policy, obs: Observation, gen):
+    def _policy_step(self, policy, obs: Observation, gen, noise=None):
+        """The ego's action, its log-probability, value and features; the
+        action noise is ``noise`` or, if None, drawn from ``gen``."""
         ego = self.cfg.ego_idx
         feat = self._featurize(obs.scans[:, ego])
         mean, log_std, value = self._apply(policy, feat, obs.linear_vels_x[:, ego])
-        noise = draws.draw_rows(mean.shape[0], lambda n: torch.randn(
-            (n,) + tuple(mean.shape[1:]), generator=gen, dtype=mean.dtype,
-            device=mean.device))
+        if noise is None:
+            noise = draws.draw_rows(mean.shape[0], lambda n: torch.randn(
+                (n,) + tuple(mean.shape[1:]), generator=gen, dtype=mean.dtype,
+                device=mean.device))
         act = mean + torch.exp(log_std) * noise
-        return act, gaussian_logp(mean, log_std, act), value, feat
+        return act, gaussian_logp(mean, log_std, act), value, feat, noise
 
     def _env_actions(self, act, obs: Observation, policy=None, map_idx=None):
         """Ego action from the policy; opponents from the opponent_plan hook
@@ -352,18 +368,26 @@ class PPO:
     def collect(self, pstate: PPOState, env_states, obs, env_params=None):
         """Roll the env batch pcfg.rollout_len steps, restarting done envs
         (``rollout.reset_done``) -> (env_states, obs, Trajectory).  Rewards
-        are computed before the restart, as in JAX.  On a mesh, every draw
-        is made for all ranks' envs (``sharding.env_draws``)."""
+        are computed before the restart, as in JAX.  Step t takes its
+        action noise from step t + pcfg.epochs of ``pstate.noise`` where
+        there is one, else draws it (class docstring, "Random streams");
+        the trajectory holds the noise of every step.  On a mesh, every
+        draw is made for all ranks' envs (``sharding.env_draws``)."""
         cfg, ego = self.cfg, self.cfg.ego_idx
         params = env_params if env_params is not None else self.env_params
         maps = rollout._env_maps(params, self.map_axis, env_states.x.shape[0],
                                  env_states.x.device)
         policy, gen = pstate.policy, pstate.gen
+        shift = self.pcfg.epochs
+        prev = None if pstate.noise is None else pstate.noise.to(obs.scans.device)
         steps = []
         with sharding.env_draws(self.mesh, env_states.x.shape[0]):
-            for _ in range(self.pcfg.rollout_len):
+            for t in range(self.pcfg.rollout_len):
+                kept = (prev[t + shift] if prev is not None and t + shift < prev.shape[0]
+                        else None)
                 with record_function("ppo/policy"):
-                    act, logp, value, feat = self._policy_step(policy, obs, gen)
+                    act, logp, value, feat, noise = self._policy_step(policy, obs, gen,
+                                                                      kept)
                 ctrl = self._env_actions(act, obs, policy, map_idx=env_states.map_idx)
                 with record_function("ppo/env_step"):
                     s = env_states if maps is None else env_states._replace(map_idx=maps)
@@ -374,7 +398,7 @@ class PPO:
                 if maps is not None:
                     s2 = s2._replace(map_idx=None)
                 steps.append((feat, obs.linear_vels_x[:, ego], act, logp, value,
-                              r.to(torch.float32), done.to(torch.float32)))
+                              r.to(torch.float32), done.to(torch.float32), noise))
                 env_states, obs = s2, obs2
         return env_states, obs, Trajectory(*(torch.stack(f) for f in zip(*steps)))
 
@@ -489,7 +513,8 @@ class PPO:
 
     def train_step(self, pstate: PPOState, env_states, obs, env_params=None):
         """One PPO iteration: collect, GAE, minibatch epochs.  Updates the
-        policy and optimizer of ``pstate`` in place -> (pstate, env_states,
+        policy and optimizer of ``pstate`` in place and takes the rollout's
+        action noise into the returned state -> (pstate, env_states,
         obs, metrics): JAX's four metrics (loss, reward_mean, done_rate,
         speed_mean), reset_steps (steps that restarted some env) and the
         diagnostics of ``DIAGNOSTICS`` (the update's means of ``_update``
@@ -498,6 +523,7 @@ class PPO:
         metrics are those of every rank's envs; the collectives of the
         update and of the resets wait for the other ranks."""
         env_states, obs, traj = self.collect(pstate, env_states, obs, env_params)
+        pstate = pstate._replace(noise=traj.noise)
         ego = self.cfg.ego_idx
         with torch.no_grad():
             _, _, last_value = self._apply(pstate.policy,

@@ -7,8 +7,9 @@ minibatch statistics and gradients are all-reduced (``agents/ppo.py``).
 The worker runs at JAX's worker shape (tests/_distributed_worker.py: 16
 envs, 2 agents, 54 beams, the exact scan with ``march_iters=8``, no scan
 noise, rollout 4, 2 minibatches, 1 epoch, ScanPolicy hidden 32 stride 4),
-with every fourth ego started 0.8 m behind the opponent so that envs
-restart within the 20 steps (JAX's poses restart none that early), in
+with every fourth ego started 0.62 m behind the opponent (a 0.04 m gap)
+so that envs restart within the 20 steps (JAX's poses restart none that
+early), in
 float64 (config and policy), as ``python -m tests.test_torch_parallel``
 (the ``__main__`` block below), one process a rank.
 
@@ -207,7 +208,7 @@ def worker(argv=None):
     params = sh.shard_params(mesh, envlib.make_params(cfg, track, ".png", device="cpu"))
 
     # identical global poses on every rank, each keeping its rows
-    poses = _start_poses(assets, track)
+    poses = _start_poses(assets, track, back=CRASH_BACK)
     poses = dist.local_rows(poses, N_ENV)
     gen = torch.Generator().manual_seed(0)
     with sh.env_draws(mesh, poses.shape[0]):
