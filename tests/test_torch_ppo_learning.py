@@ -48,7 +48,7 @@ from red_gym_tpu.config import SimConfig as JSimConfig
 from red_gym_tpu_torch import assets, env as tenv, interop, rollout as trollout
 from red_gym_tpu_torch.agents import ppo as tppo
 from red_gym_tpu_torch.config import SimConfig as TSimConfig
-from tests.test_torch_ppo import (A, BILINEAR_KW, EXACT_KW, STRIDE, _f64_heads, _leaves,
+from tests.test_torch_ppo import (A, BILINEAR_KW, EXACT_KW, STRIDE, _f64_heads,
                                   _np_tree, _policies, _sharp, _t, _traj)
 
 TRACKS = ["track_0019", "track_0042"]
@@ -175,7 +175,8 @@ def test_multimap_collect_bilinear_float32_matches_jax(tmp_path, monkeypatch):
 class _JaxDraws:
     """A stand-in for the ``jax`` name of JAX's ppo module: ``random.normal``
     and ``random.permutation`` return the slab row of the key they are
-    given, found in ``table`` (K, 2); all else is jax itself."""
+    given, its row in ``noise_keys`` or ``perm_keys`` (K, 2); all else is
+    jax itself."""
 
     def __init__(self, noise_keys, noise, perm_keys, perms):
         def lookup(keys, key):
