@@ -178,13 +178,16 @@ line:
      reward_mode "fixed"): one warm-up iteration and one update iteration
      of 32 steps; the fill, segment and march kernels launched once a
      planning step and once a reset step, every other kernel 0; losses
-     and rewards finite; the replay's size and ptr; collection
+     and rewards finite; the update iteration's SAC diagnostics (twin-Q
+     minimum, log-probability, log_std, the three gradient norms before
+     the clip; means over its steps) printed and finite; the replay's size
+     and ptr; collection
      env-steps/s, ms a SAC update, peak memory; a torch.profiler summary
      of 3 planning steps (device ops, busy and wall ms a step);
    - [sac_scale]: train_sac_scale's trainer at 512 envs x 1080 beams
      (spectral fast scan): one warm-up and one update iteration; kernel 5
-     launched once a step and once a reset step; losses finite;
-     env-steps/s;
+     launched once a step and once a reset step; losses finite; the SAC
+     diagnostics as in [sac_bitmap]; env-steps/s;
    - [sac]: train_sac (one env) for 60 steps, updates every 10 after 20;
      the kernels once a step and once a reset; its checkpoint restored
      torch.equal and the restored actor's mean action equal.
@@ -2099,6 +2102,7 @@ def sac_iterations(label: str, trainer, module, uses: tuple, env_steps_per_step:
     card's ``smi`` line."""
     import torch
 
+    from red_gym_tpu_torch.agents.sac import UPDATE_DIAGNOSTICS
     from red_gym_tpu_torch.utils.profiling import Metrics
 
     steps = trainer.args.steps_per_iter
@@ -2126,6 +2130,10 @@ def sac_iterations(label: str, trainer, module, uses: tuple, env_steps_per_step:
         f"{len(times)} SAC updates, median {upd_ms:.2f} ms, first "
         f"{1e3 * times[0][0] if times else math.nan:.1f} ms ({smi}); launches {counts}")
     check_counts(label, counts, uses, 2 * steps + resets)
+    diag = {k: out["update"][1][k] for k in UPDATE_DIAGNOSTICS}
+    say(label, f"the update iteration's SAC diagnostics (means over its {steps} steps): {diag}")
+    if not all(map(math.isfinite, diag.values())):
+        fail(f"{label}: a SAC diagnostic is not finite: {diag}")
     losses = [v for _, ls in times for v in ls.values()]
     means = [v for _, m, _ in out.values() for v in m.values()]
     if not times or not all(map(math.isfinite, losses + means)):
@@ -3101,7 +3109,8 @@ def generalization_phase(dev) -> dict:
     """[generalization]: examples/generalization_study cut to GEN_FLAGS:
     multi-map training on the 9 train tracks and the mean policy on all 11,
     kernel 1a launched once a step and a reset step (no prestep under
-    map_idx), 11 finite rows."""
+    map_idx), 11 rows finite in JAX's columns; the start-line crossing
+    columns printed (NaN for a track whose egos did not cross)."""
     import math as m
 
     from red_gym_tpu_torch.examples import generalization_study
@@ -3123,6 +3132,9 @@ def generalization_phase(dev) -> dict:
     say("generalization", f"{' '.join(GEN_FLAGS)}: {seconds:.1f} s (two multi-map "
         f"make_params included); {resets['local']} reset steps; launches {counts}")
     check_counts("generalization", counts, ("mega_edge_ttc[opp]",), want)
+    say("generalization", "start-line crossings of the evaluation, |lateral offset| (m) and "
+        "the share outside the finish band: " + "; ".join(
+            f"{r['track']} {r['cross_lat_abs_mean']} {r['cross_out_of_band']}" for r in rows))
     if len(rows) != 11 or not all(m.isfinite(r[k]) for r in rows
                                   for k in ("speed_mean", "crash_rate", "laps_mean")):
         fail(f"generalization: rows {rows}")
@@ -3654,7 +3666,8 @@ def draws_phase(dev, params) -> None:
 
 
 ONLY_PHASES = ("trace_fast", "distributed", "profile_components", "scan_error",
-               "generalization", "mpc_demo", "lidar_bitmap", "rasterize", "edt", "draws")
+               "generalization", "mpc_demo", "lidar_bitmap", "rasterize", "edt", "draws",
+               "sac_bitmap", "sac_scale")
 
 
 def only_phases(names, dev, ranks: int, workdir: str, kind: str, reports: dict) -> None:
@@ -3682,6 +3695,8 @@ def only_phases(names, dev, ranks: int, workdir: str, kind: str, reports: dict) 
               "lidar_bitmap": lambda: lidar_bitmap_phase(
                   dev, os.path.join(workdir, "lidar_bitmaps")),
               "rasterize": lambda: rasterize_phase(dev, reports),
+              "sac_bitmap": lambda: sac_bitmap_phase(dev, nvidia_smi()),
+              "sac_scale": lambda: sac_scale_phase(dev, nvidia_smi()),
               "edt": lambda: edt_phase(edt_maps(), dev, reports),
               "draws": lambda: draws_phase(dev, env.make_params(
                   SimConfig(num_agents=AGENTS, num_beams=BEAMS, scan_mode="fast"),

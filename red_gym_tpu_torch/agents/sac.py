@@ -187,15 +187,31 @@ class ScanCritic(nn.Module):
         return _dense(self.out, h.to(hd), hd)
 
 
+def normal_draw(shape, gen: torch.Generator | None, dtype, device):
+    """A standard normal draw of ``shape`` from ``gen``: every draw of SAC's
+    (the policy's eps and the update's two) goes through here."""
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+
+def replay_indices(size: int, batch_size: int, gen: torch.Generator, device):
+    """``batch_size`` indices uniform on [0, max(size, 1)), drawn from ``gen``:
+    the draw of ``ReplayBuffer.sample``."""
+    return torch.randint(0, max(size, 1), (batch_size,), generator=gen, device=device)
+
+
 def sample_action(actor: nn.Module, obs, gen: torch.Generator | None = None,
                   noise=None):
     """rsample + tanh squash with the log-prob correction (SAL.py:414-421)
     -> (action (B, A), log_prob (B, 1)).  The standard normal draw is
     ``noise`` where given, else drawn from ``gen``."""
-    mean, log_std = actor(obs)
+    return _squash(*actor(obs), gen, noise)
+
+
+def _squash(mean, log_std, gen, noise):
+    """``sample_action`` on the actor's output (mean, log_std)."""
     std = torch.exp(log_std)
-    eps = noise if noise is not None else torch.randn(
-        mean.shape, generator=gen, dtype=mean.dtype, device=mean.device)
+    eps = noise if noise is not None else normal_draw(mean.shape, gen, mean.dtype,
+                                                      mean.device)
     x_t = mean + std * eps
     y_t = torch.tanh(x_t)
     normal_logp = -0.5 * ((x_t - mean) / std) ** 2 - log_std - _HALF_LOG_2PI
@@ -251,10 +267,14 @@ class ReplayBuffer:
     def sample(self, gen: torch.Generator, batch_size: int):
         """``batch_size`` transitions drawn uniformly (with replacement) from
         the filled part -> (obs, action, reward, next_obs, done)."""
-        idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=gen,
-                            device=self.obs.device)
+        idx = replay_indices(self.size, batch_size, gen, self.obs.device)
         return (self.obs[idx], self.action[idx], self.reward[idx],
                 self.next_obs[idx], self.done[idx])
+
+
+# what SAC.update reports beside JAX's three losses, in the trainers' CSV order
+UPDATE_DIAGNOSTICS = ("q_mean", "logp_mean", "log_std_mean", "actor_grad_norm",
+                      "critic1_grad_norm", "critic2_grad_norm")
 
 
 class SACState(NamedTuple):
@@ -335,13 +355,18 @@ class SAC:
                              self.grad_clip / norm)
         torch._foreach_mul_(grads, factor)
 
-    def _step(self, module: nn.Module, opt: torch.optim.Optimizer, loss) -> None:
+    def _step(self, module: nn.Module, opt: torch.optim.Optimizer, loss):
+        """One optimizer step of ``module`` on ``loss`` -> the global norm of
+        its gradient before the clip (0-d)."""
         params = [p for p in module.parameters()]
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
+        grads = torch.autograd.grad(loss, params)
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        for p, g in zip(params, grads):
             p.grad = g
         self._clip(params)
         opt.step()
         opt.zero_grad(set_to_none=True)
+        return norm
 
     def update(self, state: SACState, batch, gen: torch.Generator | None = None,
                noise=None):
@@ -350,13 +375,18 @@ class SAC:
         ``batch`` = (obs, action, reward, next_obs, done); the two normal
         draws (next action, new action) come from ``gen`` or ``noise`` =
         (eps_next, eps_new).  Updates ``state`` in place -> (state,
-        {"actor_loss", "critic1_loss", "critic2_loss"}) as 0-d tensors."""
+        {"actor_loss", "critic1_loss", "critic2_loss"} and the diagnostics
+        of ``UPDATE_DIAGNOSTICS``, all 0-d tensors).  The diagnostics read
+        what the update computes anyway, draw nothing and change no bit of
+        it: the mean over the batch of the twin-Q minimum and of the new
+        actions' log-probability (the actor loss's two terms), the mean of
+        the actor's log_std, and each network's global gradient norm
+        before the clip."""
         obs, action, reward, next_obs, done = batch
         if noise is None:
             dt = _head_dtype(self.actor.compute_dtype)
             shape = (obs.shape[0], self.action_dim)
-            noise = tuple(torch.randn(shape, generator=gen, dtype=dt, device=self.device)
-                          for _ in range(2))
+            noise = tuple(normal_draw(shape, gen, dt, self.device) for _ in range(2))
         eps_next, eps_new = noise
 
         with torch.no_grad():
@@ -366,17 +396,21 @@ class SAC:
                   - self.alpha * next_logp)
             tv = reward[:, None] + (1 - done[:, None]) * self.gamma * tq
 
-        losses = {}
+        losses, norms = {}, {}
         for i, (critic, opt) in enumerate(((state.critic1, state.critic1_opt),
                                            (state.critic2, state.critic2_opt)), 1):
             loss = torch.mean((critic(obs, action) - tv) ** 2)
-            self._step(critic, opt, loss)
+            norms[f"critic{i}_grad_norm"] = self._step(critic, opt, loss)
             losses[f"critic{i}_loss"] = loss.detach()
 
-        new_a, logp = sample_action(state.actor, obs, noise=eps_new)
+        mean, log_std = state.actor(obs)
+        new_a, logp = _squash(mean, log_std, None, eps_new)
         q = torch.minimum(state.critic1(obs, new_a), state.critic2(obs, new_a))
         a_loss = torch.mean(self.alpha * logp - q)
-        self._step(state.actor, state.actor_opt, a_loss)   # grads of the actor only
+        # grads of the actor only
+        norms["actor_grad_norm"] = self._step(state.actor, state.actor_opt, a_loss)
+        diag = {"q_mean": q.detach().mean(), "logp_mean": logp.detach().mean(),
+                "log_std_mean": log_std.detach().mean(), **norms}
 
         with torch.no_grad():
             for target, critic in ((state.target1, state.critic1),
@@ -384,4 +418,5 @@ class SAC:
                 tp = list(target.parameters())
                 torch._foreach_mul_(tp, 1 - self.tau)
                 torch._foreach_add_(tp, list(critic.parameters()), alpha=self.tau)
-        return state, {"actor_loss": a_loss.detach(), **losses}
+        return state, {"actor_loss": a_loss.detach(), **losses,
+                       **{k: diag[k] for k in UPDATE_DIAGNOSTICS}}

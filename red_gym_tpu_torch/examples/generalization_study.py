@@ -12,6 +12,16 @@ printing and writing.  The evaluation rolls the mean policy from each track's
 raceline start for ``--eval-steps`` steps without resets, envs grouped by
 track, every track stacked.
 
+After JAX's five columns the CSV has two diagnostics of each track's
+evaluation, which draw nothing: at every forward crossing of the start line
+by an ego (the line through the start pose, square to its heading, crossed
+in the heading's direction), ``cross_lat_abs_mean`` is the mean |lateral
+offset| from the start pose (m) and ``cross_out_of_band`` the share of
+crossings farther to the side than the finish band reaches at the line,
+``finish_band_halfwidth + sqrt(finish_dist2)`` (2.316 m), where the lap
+logic counts no lap (NaN for a track without a crossing).  They tell a lap
+lost to the band from a lap not driven.
+
 The committed study's flags (docs/status.md):
     python -m red_gym_tpu_torch.examples.generalization_study --envs 4096 \\
         --iters 400 --eval-envs-per-track 4096 --eval-steps 3000 \\
@@ -25,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import math
 import os
 import time
 
@@ -36,7 +47,8 @@ from red_gym_tpu_torch.agents.ppo import PPO, PPOConfig, progress_collision_rewa
 from red_gym_tpu_torch.config import Integrator, SimConfig, resolve_device
 from red_gym_tpu_torch.parallel import distributed as pdist, sharding as sh
 
-FIELDS = ["track", "split", "speed_mean", "crash_rate", "laps_mean"]
+FIELDS = ["track", "split", "speed_mean", "crash_rate", "laps_mean", "cross_lat_abs_mean",
+          "cross_out_of_band"]
 
 
 def parse_args(argv=None):
@@ -63,27 +75,47 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def start_frame(states):
+    """The ego's (longitudinal, lateral) offsets from its start pose, in the
+    start's frame, as ``env._lap_done_update`` computes them -> two (E,)."""
+    dxy = states.x[:, 0, 0:2] - states.start_pose[:, 0, 0:2]
+    delta = (states.start_rot @ dxy[:, :, None])[:, :, 0]
+    return delta[:, 0], delta[:, 1]
+
+
 @torch.no_grad()
 def evaluate(ppo: PPO, pstate, params, poses, map_idx, steps: int, seed: int):
     """Roll the mean policy ``steps`` steps from ``poses`` (this rank's
     rows) without resets -> per env (mean ego speed, crashed at some step,
-    final ego laps), each (E,) float64 on the host, every rank's rows
-    gathered in order."""
+    final ego laps, forward start-line crossings, the sum of their |lateral
+    offsets|, those outside the finish band), each (E,) float64 on the
+    host, every rank's rows gathered in order."""
     cfg = ppo.cfg
     gen = torch.Generator(device=poses.device).manual_seed(seed)
     e_n = poses.shape[0]
-    vel_sum = torch.zeros(e_n, dtype=torch.float64, device=poses.device)
+    zeros = lambda: torch.zeros(e_n, dtype=torch.float64, device=poses.device)  # noqa: E731
+    vel_sum, crossings, lat_sum, outside = zeros(), zeros(), zeros(), zeros()
     crashed = torch.zeros(e_n, dtype=torch.bool, device=poses.device)
     with sh.env_draws(ppo.mesh, e_n):
         states, obs, *_ = rollout.batched_reset(cfg, params, poses, gen, map_idx=map_idx)
+        lon, _ = start_frame(states)
+        # how far to the side of the start the lap logic counts a crossing
+        reach = cfg.finish_band_halfwidth + math.sqrt(cfg.finish_dist2)
         for _ in range(steps):
             mean, _, _ = pstate.policy(obs.scans[:, 0], obs.linear_vels_x[:, 0])
             act = ppo._env_actions(mean, obs, pstate.policy, map_idx=states.map_idx)
             states, obs, _, _, _ = envlib.step(cfg, params, states, act, gen)
             vel_sum += obs.linear_vels_x[:, 0]
             crashed |= obs.collisions[:, 0] > 0
+            lon2, lat = start_frame(states)
+            crossed = (lon < 0) & (lon2 >= 0)
+            crossings += crossed
+            lat_sum += torch.where(crossed, lat.abs(), 0.0)
+            outside += crossed & (lat.abs() > reach)
+            lon = lon2
     per_env = torch.stack([vel_sum / steps, crashed.double(),
-                           states.lap_counts[:, 0].double()], dim=1)
+                           states.lap_counts[:, 0].double(), crossings, lat_sum, outside],
+                          dim=1)
     group = None if ppo.mesh is None else ppo.mesh.group
     return pdist.all_gather_rows(per_env, group).cpu().numpy().T
 
@@ -165,19 +197,27 @@ def run(args, device, distributed: bool):
     eval_idx = torch.arange(ntr, dtype=torch.int32, device=device).repeat_interleave(e)
     params_all, eval_poses, eval_idx = shard(params_all, starts_all[eval_idx.long()],
                                              eval_idx, ntr * e)
-    speed, crash, laps = evaluate(ppo, pstate, params_all, eval_poses, eval_idx,
-                                  args.eval_steps, args.seed + 2)
+    speed, crash, laps, crossings, lat_sum, outside = evaluate(
+        ppo, pstate, params_all, eval_poses, eval_idx, args.eval_steps, args.seed + 2)
 
     rows = []
     for t in range(ntr):
         sl = slice(t * e, (t + 1) * e)
         split = "train" if t < len(train_yamls) else "holdout"
+        n_cross = float(crossings[sl].sum())
         rows.append({"track": names[t], "split": split,
                      "speed_mean": round(float(speed[sl].mean()), 3),
                      "crash_rate": round(float(crash[sl].mean()), 4),
-                     "laps_mean": round(float(laps[sl].mean()), 3)})
+                     "laps_mean": round(float(laps[sl].mean()), 3),
+                     "cross_lat_abs_mean": round(float(lat_sum[sl].sum()) / n_cross, 4)
+                     if n_cross else math.nan,
+                     "cross_out_of_band": round(float(outside[sl].sum()) / n_cross, 4)
+                     if n_cross else math.nan})
         say(f"{names[t]:>12} [{split:7}] speed {rows[-1]['speed_mean']:5.2f} "
-            f"m/s  crash {rows[-1]['crash_rate']:.3f}  laps {rows[-1]['laps_mean']:.2f}")
+            f"m/s  crash {rows[-1]['crash_rate']:.3f}  laps {rows[-1]['laps_mean']:.2f}  "
+            f"start-line crossings {n_cross:.0f}, |lateral| "
+            f"{rows[-1]['cross_lat_abs_mean']:.3f} m, {rows[-1]['cross_out_of_band']:.3f} "
+            f"outside the band")
 
     tr = [r for r in rows if r["split"] == "train"]
     ho = [r for r in rows if r["split"] == "holdout"]

@@ -6,7 +6,9 @@ bitmaps -> CNN actor/critics -> 16-D path actions tracked by the MPC, for
 dozens of envs at once (``agents.planning_env.PlanningEnv``, batched), with
 a uint8 replay on the card.  A Python loop over ``--steps-per-iter``
 replaces the JAX script's ``lax.scan``; done envs restart through
-``PlanningEnv.reset_done``.  Each planning step launches the exact scan's
+``PlanningEnv.reset_done``.  The CSV has JAX's columns, then the means of
+``SAC.update``'s diagnostics (``agents.sac.UPDATE_DIAGNOSTICS``; 0 in the
+warm-up iterations).  Each planning step launches the exact scan's
 march kernel and the rasterizer's fill and segment kernels once.
 
 Cuts against the JAX script, each also named in ``--help``:
@@ -39,12 +41,14 @@ import torch
 
 from red_gym_tpu_torch import assets, env as envlib
 from red_gym_tpu_torch.agents import planning_env as pe
-from red_gym_tpu_torch.agents.sac import SAC, ReplayBuffer
+from red_gym_tpu_torch.agents.sac import SAC, UPDATE_DIAGNOSTICS, ReplayBuffer
 from red_gym_tpu_torch.config import SimConfig, resolve_device
 from red_gym_tpu_torch.utils import checkpoint as ckpt
 from red_gym_tpu_torch.utils.profiling import Metrics
 
 STAGGER_M, STAGGER_ROWS = 0.05, 8
+HEADER = "iter,env_steps,reward_mean,done_rate,actor_loss,secs"   # the JAX script's columns
+METRICS = ("reward", "done", "actor_loss") + UPDATE_DIAGNOSTICS
 
 
 def parse_args(argv=None):
@@ -107,12 +111,13 @@ def start_poses(track: str, envs: int, dtype, device):
     return poses.to(dtype=dtype, device=device)
 
 
-def build(args):
+def build(args, cfg: SimConfig | None = None):
     """The trainer of ``args`` on ``args.device`` (the card by default):
     env params, the planning env reset at the start poses, SAC and its
-    state, the replay and the device generator, as attributes."""
+    state, the replay and the device generator, as attributes.  ``cfg``
+    replaces the trainer's config."""
     device = resolve_device(args.device)
-    cfg = make_config(args)
+    cfg = cfg or make_config(args)
     track = args.map or assets.named_map_yaml("track_0019")
     params = envlib.make_params(cfg, track, ".png", device=device)
     pcfg = pe.default_plan_config(cfg.tdtype)._replace(bitmap_dims=(args.bitmap, args.bitmap))
@@ -129,32 +134,35 @@ def build(args):
                                 device=device))
 
 
+def uniform_actions(n: int, gen: torch.Generator, device):
+    """The warm-up's random actions: (n, ACTION_DIM) uniform on [-1, 1)."""
+    return 2.0 * torch.rand((n, pe.ACTION_DIM), generator=gen, device=device) - 1.0
+
+
 def iteration(t, do_update: bool):
     """``steps_per_iter`` planning steps of every env (random actions until
     the updates start), each pushed to the replay, done envs restarted,
     then ``updates_per_step`` SAC updates -> (metric sums, reset steps)."""
     args = t.args
-    acc = Metrics.init(("reward", "done", "actor_loss"), device=t.device)
+    acc = Metrics.init(METRICS, device=t.device)
     reset_steps = 0
     for _ in range(args.steps_per_iter):
         bitmaps = t.ps.bitmap                                     # (E, H, W)
         if do_update:
             act = t.sac.select_action(t.sstate, bitmaps, t.gen)
         else:
-            act = 2.0 * torch.rand((args.envs, pe.ACTION_DIM), generator=t.gen,
-                                   device=t.device) - 1.0
+            act = uniform_actions(args.envs, t.gen, t.device)
         ps2, bitmaps2, r, done, _ = t.env.step(t.ps, act, t.gen)
         t.buf.push_batch(bitmaps, act, r, bitmaps2, done)
         t.ps, reset_any = t.env.reset_done(ps2, done, t.gen)
         reset_steps += reset_any
-        actor_loss = 0.0
+        last = dict.fromkeys(METRICS[2:], 0.0)
         if do_update:
             for _ in range(args.updates_per_step):
                 t.sstate, losses = t.sac.update(t.sstate, t.buf.sample(t.gen, args.batch_size),
                                                 t.gen)
-            actor_loss = losses["actor_loss"]
-        acc = Metrics.update(acc, reward=r.mean(), done=done.float().mean(),
-                             actor_loss=actor_loss)
+            last = {k: losses[k] for k in last}
+        acc = Metrics.update(acc, reward=r.mean(), done=done.float().mean(), **last)
     return acc, reset_steps
 
 
@@ -171,15 +179,15 @@ def main(argv=None):
 
     if args.log_csv and start_iter == 0:
         with open(args.log_csv, "w") as f:
-            f.write("iter,env_steps,reward_mean,done_rate,actor_loss,secs\n")
+            f.write(",".join((HEADER,) + METRICS[3:]) + "\n")
     for it in range(start_iter, args.iters):
         t0 = time.time()
         acc, _ = iteration(t, it >= args.warmup_iters)
         m = Metrics.means(acc)
         secs = time.time() - t0
         row = (it, (it + 1) * args.steps_per_iter * args.envs, m["reward"], m["done"],
-               m["actor_loss"], round(secs, 2))
-        print("iter %d  env-steps %d  reward %.3f  done %.3f  aloss %.4f  %.1fs" % row,
+               m["actor_loss"], round(secs, 2)) + tuple(m[k] for k in METRICS[3:])
+        print("iter %d  env-steps %d  reward %.3f  done %.3f  aloss %.4f  %.1fs" % row[:6],
               flush=True)
         if args.log_csv:
             with open(args.log_csv, "a") as f:

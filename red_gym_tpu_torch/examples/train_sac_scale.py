@@ -7,7 +7,10 @@ CSV columns and its line per iteration: the scan-MLP SAC (``ScanActor``,
 ``ops/spectral_kernels.theta_spectral_ttc``), SAL-scale reward shaping
 (progress x10, crash -100).  A Python loop over ``--steps-per-iter``
 replaces the JAX script's ``lax.scan``; done envs restart from their start
-pose through ``rollout.reset_done``.
+pose through ``rollout.reset_done``.  The CSV has JAX's columns, then the
+means of ``SAC.update``'s diagnostics (``agents.sac.UPDATE_DIAGNOSTICS``;
+0 in the warm-up iterations).  ``--seed S`` shifts the seed of each
+generator by S (the JAX script has no ``--seed``: S = 0 is its run).
 
 Cuts against the JAX script: the map is the packaged ``track_0019`` (the
 JAX script's ``example_map.yaml`` is not packaged), cars start on its
@@ -34,6 +37,8 @@ from red_gym_tpu_torch.utils import checkpoint as ckpt
 from red_gym_tpu_torch.utils.profiling import Metrics
 
 TRACK = "track_0019"
+HEADER = "iter,env_steps,reward,done_rate,actor_loss,wall_s"   # the JAX script's columns
+METRICS = ("reward", "done", "actor_loss") + sac_lib.UPDATE_DIAGNOSTICS
 
 
 def parse_args(argv=None):
@@ -50,6 +55,8 @@ def parse_args(argv=None):
     ap.add_argument("--capacity", type=int, default=200_000)
     ap.add_argument("--beams", type=int, default=1080)
     ap.add_argument("--warmup-iters", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="shifts the seed of the env generator (0) and of SAC's init (1)")
     ap.add_argument("--save", type=str, default="sac_scale_ckpt.pt",
                     help="checkpoint file (the JAX script's is an orbax directory)")
     ap.add_argument("--device", type=str, default="cuda",
@@ -79,13 +86,13 @@ def build(args, cfg: SimConfig | None = None):
                       actor=sac_lib.ScanActor(args.beams, action_dim=2),
                       critic=sac_lib.ScanCritic(args.beams, action_dim=2),
                       obs_dtype=torch.float32, device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(0 + args.seed)
     start = torch.as_tensor(assets.waypoint_start_poses(track, 1), dtype=cfg.tdtype,
                             device=device)
     states, obs, *_ = envlib.reset(cfg, params, start.expand(args.envs, 1, 3).contiguous(), gen)
     return types.SimpleNamespace(
         args=args, cfg=cfg, device=device, params=params, sac=sac, gen=gen,
-        states=states, obs=obs, sstate=sac.init(torch.Generator().manual_seed(1)),
+        states=states, obs=obs, sstate=sac.init(torch.Generator().manual_seed(1 + args.seed)),
         buf=sac_lib.ReplayBuffer.create(args.capacity, (args.beams,), 2,
                                         obs_dtype=torch.float32, device=device))
 
@@ -101,7 +108,7 @@ def iteration(t, do_update: bool):
     replay, done envs restarted, then ``updates_per_step`` SAC updates ->
     (metric sums, reset steps)."""
     args, cfg = t.args, t.cfg
-    acc = Metrics.init(("reward", "done", "actor_loss"), device=t.device)
+    acc = Metrics.init(METRICS, device=t.device)
     reset_steps = 0
     for _ in range(args.steps_per_iter):
         scan_obs = t.obs.scans[:, 0]
@@ -116,14 +123,13 @@ def iteration(t, do_update: bool):
         t.states, t.obs, reset_any = rollout.reset_done(cfg, t.params, states2, obs2, done,
                                                         t.gen)
         reset_steps += reset_any
-        actor_loss = 0.0
+        last = dict.fromkeys(METRICS[2:], 0.0)
         if do_update:
             for _ in range(args.updates_per_step):
                 t.sstate, losses = t.sac.update(t.sstate, t.buf.sample(t.gen, args.batch_size),
                                                 t.gen)
-            actor_loss = losses["actor_loss"]
-        acc = Metrics.update(acc, reward=r.mean(), done=done.float().mean(),
-                             actor_loss=actor_loss)
+            last = {k: losses[k] for k in last}
+        acc = Metrics.update(acc, reward=r.mean(), done=done.float().mean(), **last)
     return acc, reset_steps
 
 
@@ -134,7 +140,7 @@ def main(argv=None):
     csv_f = None
     if args.log_csv:
         csv_f = open(args.log_csv, "w")
-        csv_f.write("iter,env_steps,reward,done_rate,actor_loss,wall_s\n")
+        csv_f.write(",".join((HEADER,) + METRICS[3:]) + "\n")
     t_start = time.time()
     for it in range(args.iters):
         t0 = time.time()
@@ -146,7 +152,8 @@ def main(argv=None):
               f"buf={t.buf.size} ({spi / dt:,.0f} env-steps/s)", flush=True)
         if csv_f:
             csv_f.write(f"{it},{(it + 1) * spi},{m['reward']:.6f},{m['done']:.6f},"
-                        f"{m['actor_loss']:.6f},{time.time() - t_start:.2f}\n")
+                        f"{m['actor_loss']:.6f},{time.time() - t_start:.2f}"
+                        + "".join(f",{m[k]:.6f}" for k in METRICS[3:]) + "\n")
             csv_f.flush()
     if csv_f:
         csv_f.close()

@@ -157,6 +157,13 @@ def test_sac_trainer_device_flag_defaults_to_cuda(name):
     assert SAC_TRAINERS[name].parse_args([]).device == "cuda"
 
 
+@pytest.mark.parametrize("name", ["train_sac_bitmap_scale", "train_sac_scale"])
+def test_sac_trainer_seed_defaults_to_zero(name):
+    """``--seed 0`` is the committed run: for the scan trainer, whose JAX
+    script has no seed, it leaves every generator's seed as it was."""
+    assert SAC_TRAINERS[name].parse_args([]).seed == 0
+
+
 @pytest.mark.parametrize("name", list(TOOL_EXAMPLES))
 def test_tool_example_device_flag_defaults_to_cuda(name):
     assert TOOL_EXAMPLES[name].parse_args([]).device == "cuda"

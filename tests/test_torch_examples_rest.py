@@ -122,12 +122,16 @@ def test_generalization_study_writes_jax_columns(tmp_path, capsys):
         jax_header = next(csv.reader(f))
     with open(out) as f:
         got = list(csv.DictReader(f))
-    assert list(got[0]) == jax_header == generalization_study.FIELDS
+    # JAX's five columns, then the two start-line crossing diagnostics
+    assert list(got[0]) == jax_header + ["cross_lat_abs_mean", "cross_out_of_band"] \
+        == generalization_study.FIELDS
     names = [os.path.basename(p)[:-5] for p in assets.packaged_tracks()]
     assert [r["track"] for r in got] == names and len(got) == 11
     assert [r["split"] for r in got] == ["train"] * 9 + ["holdout"] * 2
     for r in got:
-        assert all(np.isfinite(float(r[k])) for k in generalization_study.FIELDS[2:])
+        assert all(np.isfinite(float(r[k])) for k in jax_header[2:])
+        # 5 steps from the start line: no forward crossing yet
+        assert all(np.isnan(float(r[k])) for k in generalization_study.FIELDS[5:])
     assert len(rows) == 11
     text = capsys.readouterr().out
     assert "held-out tracks: ['track_narrow', 'track_wide']" in text

@@ -12,7 +12,8 @@ import pytest
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "red_gym_tpu_torch")
 SOURCES = sorted(glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "red_gym_tpu")
+# learning_ab.py, at the repo root, runs JAX's trainers beside the port's
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "red_gym_tpu", "learning_ab")
 
 
 def _imports(tree):

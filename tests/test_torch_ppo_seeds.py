@@ -1,7 +1,10 @@
 """``examples/ppo_seeds.py``: the exact one-sided Mann-Whitney test against
 scipy's, the tail statistic against ``tests/test_learning_curves.py``'s,
-the CSV comparison, and a run of two seeds on the CPU."""
+the SAC and study gates restated from its tests on the committed CSVs, each
+trainer's committed flags, the CSV comparison, and a run of two seeds on
+the CPU."""
 
+import argparse
 import os
 import subprocess
 import sys
@@ -72,3 +75,68 @@ def test_run_two_seeds_on_cpu(tmp_path):
     assert list(c0)[:7] == ["iter", "env_steps", "loss", "reward_mean", "done_rate",
                             "speed_mean", "wall_s"]
     assert len(c0["loss"]) == 2 and c0["loss"] != c1["loss"]
+
+
+def test_sac_scale_gate_restates_jax_test():
+    """``test_sac_scale_curve_learns``'s arithmetic: JAX's committed curve
+    passes, the port's PR 13 curve (track_0019) misses."""
+    c = ppo_seeds.load(os.path.join(MEDIA, "sac_scale_curve.csv"))
+    r, d = np.asarray(c["reward"]), np.asarray(c["done_rate"])
+    n = len(r)
+    g = ppo_seeds.sac_scale_gate(c)
+    assert g["passes"] and g["iters"] == n == 1200
+    assert g["stat"] == pytest.approx(r[-n // 4:].mean() - r[: n // 4].mean(), rel=1e-12)
+    assert g["done_ratio"] == pytest.approx(d[-n // 4:].mean() / d[: n // 4].mean(),
+                                            rel=1e-12)
+    port = ppo_seeds.sac_scale_gate(
+        ppo_seeds.load(os.path.join(MEDIA, "sac_torch_scale_curve.csv")))
+    assert not port["passes"] and port["stat"] < 0.1
+
+
+def test_sac_bitmap_gate_restates_jax_test():
+    """``test_bitmap_sac_curve_rises``' arithmetic: JAX's committed curve
+    (152 rows) passes, the port's PR 13 curve (400 rows) misses and passes
+    on its first 200 rows."""
+    c = ppo_seeds.load(os.path.join(MEDIA, "sac_bitmap_curve.csv"))
+    r = np.asarray(c["reward_mean"])
+    n = len(r)
+    k = max(3, n // 10)
+    g = ppo_seeds.sac_bitmap_gate(c)
+    assert g["passes"] and n == 152
+    assert g["stat"] == pytest.approx(r[-k:].mean() - r[2: 2 + k].mean(), rel=1e-12)
+    port = ppo_seeds.load(os.path.join(MEDIA, "sac_torch_bitmap_curve.csv"))
+    assert not ppo_seeds.sac_bitmap_gate(port)["passes"]
+    first = {key: v[:200] for key, v in port.items()}
+    assert ppo_seeds.sac_bitmap_gate(first)["passes"]
+    short = {key: v[:49] for key, v in port.items()}
+    assert not ppo_seeds.sac_bitmap_gate(short)["passes"]
+
+
+def test_generalization_gate_restates_jax_test():
+    """``test_generalization_study_artifact``'s limits: JAX's committed study
+    passes; the port's (PR 15) misses on three rows."""
+    jax_rows = ppo_seeds.load_rows(os.path.join(MEDIA, "generalization.csv"))
+    assert ppo_seeds.generalization_gate(jax_rows) == {"passes": True, "misses": []}
+    port = ppo_seeds.generalization_gate(
+        ppo_seeds.load_rows(os.path.join(MEDIA, "generalization_torch.csv")))
+    assert port["misses"] == ["track_0412", "track_0613", "track_narrow"]
+    summary = ppo_seeds.study_summary([os.path.join(MEDIA, "generalization_torch.csv")],
+                                      [os.path.join(MEDIA, "generalization.csv")])
+    row = summary["tracks"]["track_0412"]
+    assert row["crash_rate"]["median"] == 0.5256 and row["split"] == "train"
+    assert row["reference"]["generalization.csv"]["crash_rate"] == "0.0156"
+
+
+@pytest.mark.parametrize("trainer", sorted(ppo_seeds.TRAINERS))
+def test_trainer_flags_are_the_committed_ones(trainer):
+    args = argparse.Namespace(
+        trainer=trainer, envs=None, iters=None, multi_map=False, trainer_args="--device cpu")
+    flags = ppo_seeds.trainer_flags(args, 3, "/x/s3")
+    module, committed, saves = ppo_seeds.TRAINERS[trainer]
+    assert flags[:2] == ["-m", module] and flags[2:2 + len(committed)] == committed
+    rest = flags[2 + len(committed):]
+    assert rest[:4] == ["--seed", "3", "--log-csv", "/x/s3.csv"]
+    assert ("--save" in rest) == saves and rest[-2:] == ["--device", "cpu"]
+    args.envs, args.iters = 8, 2
+    flags = ppo_seeds.trainer_flags(args, 0, "/x/s0")
+    assert flags[flags.index("--envs") + 1] == "8" and flags[flags.index("--iters") + 1] == "2"

@@ -1,14 +1,17 @@
 """The port's three SAC trainers (``red_gym_tpu_torch/examples/train_sac*.py``)
-on the CPU at tiny sizes: their CSV columns are the JAX scripts', a run
-resumes from its checkpoint at the saved iteration, and each iteration
-fills the replay and restarts done envs as the JAX loops do."""
+on the CPU at tiny sizes: their CSV columns are the JAX scripts', then the
+update's diagnostics (``agents.sac.UPDATE_DIAGNOSTICS``), a run resumes
+from its checkpoint at the saved iteration, and each iteration fills the
+replay and restarts done envs as the JAX loops do."""
 
 import csv
 import dataclasses
+import math
 import os
 
 import torch
 
+from red_gym_tpu_torch.agents.sac import UPDATE_DIAGNOSTICS
 from red_gym_tpu_torch.examples import train_sac, train_sac_bitmap_scale, train_sac_scale
 from red_gym_tpu_torch.utils import checkpoint
 
@@ -35,11 +38,16 @@ def test_bitmap_trainer_csv_and_resume(tmp_path):
     log, ckpt = str(tmp_path / "curve.csv"), str(tmp_path / "sac.pt")
     t = train_sac_bitmap_scale.main(BITMAP_ARGS + ["--iters", "2", "--log-csv", log,
                                                    "--save", ckpt])
-    assert _header(log) == _csv_literal("examples/train_sac_bitmap_scale.py")
+    assert _header(log) == (_csv_literal("examples/train_sac_bitmap_scale.py")
+                            + list(UPDATE_DIAGNOSTICS))
     with open(log) as f:
         rows = list(csv.DictReader(f))
     assert [int(r["env_steps"]) for r in rows] == [9, 18]
     assert float(rows[0]["actor_loss"]) == 0.0 and float(rows[1]["actor_loss"]) != 0.0
+    # the warm-up reports no update; the update iteration finite diagnostics
+    assert all(float(rows[0][k]) == 0.0 for k in UPDATE_DIAGNOSTICS)
+    assert all(math.isfinite(float(rows[1][k])) for k in UPDATE_DIAGNOSTICS)
+    assert float(rows[1]["actor_grad_norm"]) > 0.0
     assert (t.buf.size, t.buf.ptr) == (18, 18)
     assert checkpoint.restore(ckpt)["it"] == 2
     # the resumed run starts at iteration 2
