@@ -39,19 +39,56 @@ columns.
     python3 learning_ab.py sac_bitmap --envs 32 --iters 400 --steps-per-iter 16 \\
         --bitmap 128 --f32 --alpha 0.02 --seed 0 \\
         --log-csv docs/media/sac_jax_cpu_track0019_bitmap_seed0.csv
+
+The third arm, ``ppo``, copies no trainer body: it runs JAX's own
+``examples/train_ppo.py --multi-map`` unmodified, in a child process
+(``ppo_child``: this file again, ``ppo-child``, which imports JAX, forces the
+CPU through ``jax.config`` and hands the trainer its ``sys.argv`` through
+``runpy``).  ``--multi-map`` builds the 11 packaged tracks and the starts at
+waypoint rows 0 and 8 itself (``examples/train_ppo.py:89-107``), so no map is
+read from outside the repository.  ``--law`` is JAX's key law, set in the
+child's environment before JAX is imported: ``jax09`` is
+``JAX_THREEFRY_PARTITIONABLE=1`` (JAX 0.5 and later, where ``split(k, n)[j]``
+does not depend on n; the law the port follows), ``fresh`` is ``=0`` (the
+law before 0.5, where it does).  The child prints ``jax.__version__`` and
+the flag as JAX read it on the first line of its log.  Every other flag
+stays at ``train_ppo``'s own default: rollout 32, 2 agents, 1080 beams,
+float32, the bilinear edge + grad scan, ``--opponents cruise``.  On the CPU
+JAX's fast scan takes its non-Pallas path for the bilinear edge + grad
+epilogue (the Pallas kernel 4 is a TPU kernel); that is JAX's behaviour,
+and the port's kernel 4 is held to it at the float32 bar in
+``tests/test_torch_ppo.py``.
+
+The committed A/B runs at 1024 envs x 100 iterations, cut from the
+16384 envs of the TPU's curves (``docs/media/ppo_multimap_seed*.csv``) so
+that JAX runs on the CPU; the pilot that chose the size is in PERF.md:
+
+    python3 learning_ab.py ppo --law jax09 --envs 1024 --iters 100 --seed 0 \\
+        --log-csv docs/media/ppo_jax_cpu_multimap_jax09_n1024_seed0.csv
+    python3 learning_ab.py ppo --law fresh --envs 1024 --iters 100 --seed 0 \\
+        --log-csv docs/media/ppo_jax_cpu_multimap_fresh_n1024_seed0.csv
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import os
+import runpy
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
 import types
 
 import numpy as np
 
 STAGGER_M, STAGGER_ROWS = 0.05, 8
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_PPO = os.path.join(ROOT, "examples", "train_ppo.py")
+# --law -> JAX_THREEFRY_PARTITIONABLE in the child's environment
+LAWS = {"jax09": "1", "fresh": "0"}
 
 
 def scale_parser() -> argparse.ArgumentParser:
@@ -359,11 +396,78 @@ def run_sac_bitmap(args, map_yaml: str, poses) -> None:
                 f.write(",".join(str(v) for v in row) + "\n")
 
 
+# ---------------------------------------------------------------------------
+# examples/train_ppo.py --multi-map, unmodified
+# ---------------------------------------------------------------------------
+
+
+def ppo_parser() -> argparse.ArgumentParser:
+    """The flags of the PPO arm; every other flag of ``train_ppo`` keeps its
+    default."""
+    ap = argparse.ArgumentParser(prog="learning_ab.py ppo")
+    ap.add_argument("--law", choices=sorted(LAWS), required=True,
+                    help="jax09: JAX_THREEFRY_PARTITIONABLE=1; fresh: =0")
+    ap.add_argument("--envs", type=int, default=1024)
+    ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-csv", type=str, required=True)
+    ap.add_argument("--log", type=str, default=None,
+                    help="the child's output (default: this process's)")
+    return ap
+
+
+def ppo_child(args, save_dir: str) -> tuple[list, dict]:
+    """The child's argv and environment for the PPO arm ``args``: this file's
+    ``ppo-child`` with ``train_ppo``'s flags, on the CPU under ``--law``."""
+    argv = [sys.executable, os.path.abspath(__file__), "ppo-child", "--multi-map",
+            "--envs", str(args.envs), "--iters", str(args.iters), "--seed", str(args.seed),
+            "--log-csv", os.path.abspath(args.log_csv), "--save", save_dir]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", RGT_PLATFORM="cpu",
+               JAX_THREEFRY_PARTITIONABLE=LAWS[args.law])
+    return argv, env
+
+
+def run_ppo(args) -> int:
+    """JAX's ``train_ppo --multi-map`` in a child under ``args.law`` -> its
+    exit code; its checkpoint goes to a temporary directory, removed after."""
+    save_dir = tempfile.mkdtemp(prefix="ppo_ab_ckpt_")
+    try:
+        argv, env = ppo_child(args, save_dir)
+        out = open(args.log, "w") if args.log else None
+        try:
+            return subprocess.run(argv, env=env, cwd=ROOT, stdout=out,
+                                  stderr=subprocess.STDOUT if out else None).returncode
+        finally:
+            if out:
+                out.close()
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+
+def ppo_child_main(flags: list) -> int:
+    """In the child: JAX on the CPU, its version and key law logged, then
+    ``examples/train_ppo.py`` run as ``__main__`` with ``flags``."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    print(f"JAX {jax.__version__}: JAX_THREEFRY_PARTITIONABLE="
+          f"{os.environ.get('JAX_THREEFRY_PARTITIONABLE')} "
+          f"jax_threefry_partitionable={jax.config.jax_threefry_partitionable}; "
+          f"examples/train_ppo.py {' '.join(flags)}", flush=True)
+    sys.argv = [TRAIN_PPO] + list(flags)
+    runpy.run_path(TRAIN_PPO, run_name="__main__")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "ppo-child":
+        return ppo_child_main(argv[1:])
+    if argv and argv[0] == "ppo":
+        return run_ppo(ppo_parser().parse_args(argv[1:]))
     if not argv or argv[0] not in ("sac_scale", "sac_bitmap"):
         print(__doc__)
-        print("usage: learning_ab.py sac_scale|sac_bitmap [flags]", file=sys.stderr)
+        print("usage: learning_ab.py sac_scale|sac_bitmap|ppo [flags]", file=sys.stderr)
         return 2
     import jax
 

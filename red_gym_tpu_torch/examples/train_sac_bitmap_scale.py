@@ -170,6 +170,9 @@ def main(argv=None):
     args = parse_args(argv)
     # --f32 means float32 convolutions; cuDNN would run them in TF32
     torch.backends.cudnn.allow_tf32 = False
+    # a seed reproduces its run, as JAX's does: cuDNN's default convolution
+    # backward sums in an order that changes from run to run
+    torch.backends.cudnn.deterministic = True
     t = build(args)
     start_iter = 0
     if args.resume and os.path.isfile(args.resume):
