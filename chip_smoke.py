@@ -124,7 +124,9 @@ line:
      the update's diagnostics (approx KL, clip fraction, log_std, value
      loss, gradient norm) of each timed iteration printed and finite; each
      rollout's action noise the last one's shifted by the epochs (JAX's
-     key chain);
+     key chain); then train_ppo --multi-map at the seed runner's flags
+     (``ppo_seeds.trainer_flags``) for REPRO_PPO_ITERS iterations of seed
+     0, twice: every CSV column but the wall time equal;
    - ppo_ultra: one iteration of --ultra, kernel 5 counted the same way;
    - ppo_multimap_pursuit: one iteration on the 11 stacked tracks with
      pure_pursuit_opponents_multi (kernel 4); the opponents of the envs
@@ -183,7 +185,10 @@ line:
      the clip; means over its steps) printed and finite; the replay's size
      and ptr; collection
      env-steps/s, ms a SAC update, peak memory; a torch.profiler summary
-     of 3 planning steps (device ops, busy and wall ms a step);
+     of 3 planning steps (device ops, busy and wall ms a step); then the
+     trainer's main() at the seed runner's flags (32 envs, 128 px, float32
+     CNN) for REPRO_BITMAP_ITERS iterations of seed 0, twice: every CSV
+     column but the time equal, each iteration's seconds printed;
    - [sac_scale]: train_sac_scale's trainer at 512 envs x 1080 beams
      (spectral fast scan): one warm-up and one update iteration; kernel 5
      launched once a step and once a reset step; losses finite; the SAC
@@ -1440,6 +1445,43 @@ def device_busy(fn):
 PPO_ITERS = 3              # timed train_steps of the ppo phase, after one warm-up
 EVAL_STEPS = 200           # the checkpoint phase's mean-policy rollout
 PURSUIT_BYTES = 2 * 2**30  # the pursuit step's own peak memory at full width
+REPRO_PPO_ITERS = 3        # iterations of each of the two seed-0 runs of a trainer
+REPRO_BITMAP_ITERS = 6     # (the bitmap trainer: 2 warm-up, 4 with updates)
+
+
+def same_seed_twice(label: str, trainer: str, iters: int, main, multi_map: bool = False) -> None:
+    """``trainer``'s ``main`` at the seed runner's flags for it
+    (``ppo_seeds.trainer_flags``, ``--iters`` ``iters``, seed 0) twice, its
+    output kept out of this one's: fail unless the two CSVs agree in every
+    column but the time columns (``ppo_seeds.compare``)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from red_gym_tpu_torch.examples import ppo_seeds
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32)
+    runner = argparse.Namespace(trainer=trainer, envs=None, iters=iters, multi_map=multi_map,
+                                trainer_args="--device cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        stems = [os.path.join(d, f"run{i}") for i in (0, 1)]
+        for stem in stems:
+            argv = ppo_seeds.trainer_flags(runner, 0, stem)[2:]
+            with contextlib.redirect_stdout(io.StringIO()):
+                main(argv)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = flags
+        out = ppo_seeds.compare(*(stem + ".csv" for stem in stems))
+        curves = [ppo_seeds.load(stem + ".csv") for stem in stems]
+        shown = " ".join(a for a in argv if not a.startswith(d))
+    secs = [[c[k] for k in ppo_seeds.TIME_COLUMNS if k in c][0] for c in curves]
+    say(label, f"seed 0 twice, {out['rows']} iterations each ({shown}), "
+        f"{time.perf_counter() - t0:.1f} s; the time column of each run {secs}; every other "
+        f"column equal: {out['equal']} {out['first_differing_row']}")
+    if not out["equal"] or out["rows"] != iters:
+        fail(f"{label}: seed 0 does not reproduce its run: {out}")
 
 
 def ppo_trainer(argv: list, params, dev):
@@ -1554,6 +1596,7 @@ def ppo_phase(params, dev, profile: bool):
     after = pstate.policy.state_dict()
     if all(torch.equal(before[k], after[k]) for k in before):
         fail("ppo: no parameter moved in the timed iterations")
+    same_seed_twice("ppo", "ppo", REPRO_PPO_ITERS, train_ppo.main, multi_map=True)
     return ppo, pstate, states, obs, counts["theta_shuffle_blend_edge_ttc_opp"]
 
 
@@ -2208,6 +2251,7 @@ def sac_bitmap_phase(dev, smi: str):
     say("profile:sac_bitmap", "device events by time a step: " + "; ".join(
         f"{a.key[:60]} {a.self_device_time_total / 1e3 / SAC_PROFILE_STEPS:.2f} ms "
         f"x{a.count / SAC_PROFILE_STEPS:.0f}" for a in kernels))
+    same_seed_twice("sac_bitmap", "sac_bitmap", REPRO_BITMAP_ITERS, tsb.main)
     return counts, rec
 
 

@@ -51,7 +51,7 @@ child's environment before JAX is imported: ``jax09`` is
 ``JAX_THREEFRY_PARTITIONABLE=1`` (JAX 0.5 and later, where ``split(k, n)[j]``
 does not depend on n; the law the port follows), ``fresh`` is ``=0`` (the
 law before 0.5, where it does).  The child prints ``jax.__version__`` and
-the flag as JAX read it on the first line of its log.  Every other flag
+the flag as JAX read it on the first line of its output.  Every other flag
 stays at ``train_ppo``'s own default: rollout 32, 2 agents, 1080 beams,
 float32, the bilinear edge + grad scan, ``--opponents cruise``.  On the CPU
 JAX's fast scan takes its non-Pallas path for the bilinear edge + grad
@@ -411,8 +411,6 @@ def ppo_parser() -> argparse.ArgumentParser:
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-csv", type=str, required=True)
-    ap.add_argument("--log", type=str, default=None,
-                    help="the child's output (default: this process's)")
     return ap
 
 
@@ -433,13 +431,7 @@ def run_ppo(args) -> int:
     save_dir = tempfile.mkdtemp(prefix="ppo_ab_ckpt_")
     try:
         argv, env = ppo_child(args, save_dir)
-        out = open(args.log, "w") if args.log else None
-        try:
-            return subprocess.run(argv, env=env, cwd=ROOT, stdout=out,
-                                  stderr=subprocess.STDOUT if out else None).returncode
-        finally:
-            if out:
-                out.close()
+        return subprocess.run(argv, env=env, cwd=ROOT).returncode
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
 
