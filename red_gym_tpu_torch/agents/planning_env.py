@@ -9,8 +9,8 @@ rasterization, rewards) runs over a batch of E envs: ``reset(poses (E, A,
 writes one env and vmaps it.  On the card each planning step launches the
 exact scan's march kernel once (``env.step``) and the rasterizer's fill and
 segment kernels once each (the FILL bitmap of every env).  Its sections
-are torch.profiler ranges: ``plan/mpc`` (decode, path, MPC), ``plan/env_step``,
-``plan/bitmap`` and ``plan/reward``.
+are spans (``utils/profiling.span``): ``plan/mpc`` (decode, path, MPC),
+``plan/env_step``, ``plan/bitmap`` and ``plan/reward``.
 
 Faithful semantic notes (as in the JAX package):
   * the reference's MPC_controller simulates 10 internal steps but only
@@ -29,7 +29,6 @@ import math
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from red_gym_tpu_torch import env as envlib, rollout
 from red_gym_tpu_torch.agents import mpc
@@ -37,6 +36,7 @@ from red_gym_tpu_torch.config import SimConfig, resolve_device
 from red_gym_tpu_torch.env import EnvParams, EnvState, Observation
 from red_gym_tpu_torch.ops import bitmap_rewards as br
 from red_gym_tpu_torch.ops.rasterize import lidar_to_bitmap
+from red_gym_tpu_torch.utils.profiling import span
 
 NUM_SEGMENTS = 8
 ACTION_DIM = 16           # reshaped (8, 2) like the reference decode
@@ -207,7 +207,7 @@ class PlanningEnv:
         car_pose = torch.stack([obs.poses_x[:, ego], obs.poses_y[:, ego],
                                 obs.poses_theta[:, ego]], dim=-1)
 
-        with record_function("plan/mpc"):
+        with span("plan/mpc"):
             # replan when the path is exhausted (SAL.py:108-110)
             need = ps.sub_index >= PATH_LEN
             new_path = build_path(decode_action(raw_action.to(cfg.tdtype), pcfg), car_pose,
@@ -225,12 +225,12 @@ class PlanningEnv:
             actions = torch.zeros((e_n, cfg.num_agents, 2), dtype=cfg.tdtype,
                                   device=self.device)
             actions[:, ego] = ctrl.to(cfg.tdtype)
-        with record_function("plan/env_step"):
+        with span("plan/env_step"):
             env_state, obs2, _, done, info = envlib.step(cfg, self.env_params, ps.env_state,
                                                          actions, gen)
-        with record_function("plan/bitmap"):
+        with span("plan/bitmap"):
             bitmap = self._bitmap(obs2.scans[:, ego])
-        with record_function("plan/reward"):
+        with span("plan/reward"):
 
             # divergence quarantine: the CommonRoad ST model is stiff near the
             # kinematic-switch speed, and an adversarial planner CAN excite the

@@ -38,13 +38,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from red_gym_tpu_torch import rollout
 from red_gym_tpu_torch.agents import pure_pursuit as pp
 from red_gym_tpu_torch.config import SimConfig
 from red_gym_tpu_torch.env import EnvParams, Observation, step
 from red_gym_tpu_torch.parallel import draws, sharding
+from red_gym_tpu_torch.utils.profiling import span
 
 # flax's lecun_normal: a normal of std 1/sqrt(fan_in) truncated to +-2 of its
 # own std, rescaled by the std of a standard normal truncated to [-2, 2] so
@@ -355,7 +355,7 @@ class PPO:
             mean, _, _ = policy(obs.scans, obs.linear_vels_x)   # (E, A, 2)
             others = action_to_control(mean, self.pcfg, dt)
         elif self.opponent_plan is not None:
-            with record_function("ppo/opponents"):
+            with span("ppo/opponents"):
                 others = (self.opponent_plan(obs, map_idx) if self._opp_takes_map
                           else self.opponent_plan(obs)).to(dt)
         else:
@@ -385,15 +385,15 @@ class PPO:
             for t in range(self.pcfg.rollout_len):
                 kept = (prev[t + shift] if prev is not None and t + shift < prev.shape[0]
                         else None)
-                with record_function("ppo/policy"):
+                with span("ppo/policy"):
                     act, logp, value, feat, noise = self._policy_step(policy, obs, gen,
                                                                       kept)
                 ctrl = self._env_actions(act, obs, policy, map_idx=env_states.map_idx)
-                with record_function("ppo/env_step"):
+                with span("ppo/env_step"):
                     s = env_states if maps is None else env_states._replace(map_idx=maps)
                     s2, obs2, _, done, _ = step(cfg, params, s, ctrl, gen)
                 r = self.reward_fn(cfg, obs, obs2)
-                with record_function("ppo/reset"):
+                with span("ppo/reset"):
                     s2, obs2, _ = rollout.reset_done(cfg, params, s2, obs2, done, gen)
                 if maps is not None:
                     s2 = s2._replace(map_idx=None)
@@ -529,7 +529,7 @@ class PPO:
             _, _, last_value = self._apply(pstate.policy,
                                            self._featurize(obs.scans[:, ego]),
                                            obs.linear_vels_x[:, ego])
-        with record_function("ppo/update"):
+        with span("ppo/update"):
             upd = self._update(pstate, traj, last_value)
         # the metrics of every rank's envs: their sums, the update's shares
         # and each step's done count, in one all-reduce on a mesh

@@ -42,6 +42,14 @@ megakernel, the unfused epilogues and the spectral render read the flat
 (M * N, C*T) texture at rows offset by map, and the exact march reads each
 car's map of the (M, H, W) distance transforms.  The pre-scan state kernel
 covers one map, so under ``map_idx`` the eager chain runs, as in JAX.
+
+A step's stages are spans (``utils/profiling.span``, profiler ranges
+while a session records): ``env/dynamics`` (the state kernel or the eager
+chain), ``env/noise``, ``env/scan`` (the cars' vertices, the opponent
+slab and the scan, whatever kernels implement it), ``env/scan_tail`` (the
+eager noise add, iTTC check and opponent cast, where no kernel fused
+them), ``env/collision`` and ``env/laps``.  ``make_params`` and
+``make_multimap_params`` are the set-up span ``setup/params``.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from red_gym_tpu_torch.maps.loader import TrackMap, load_map, pad_map, stack_map
 from red_gym_tpu_torch.ops import agent_scan, collision as col
 from red_gym_tpu_torch.ops import scan as scan_ops, scan_fast, scan_kernels, state_kernels
 from red_gym_tpu_torch.parallel import draws
+from red_gym_tpu_torch.utils.profiling import setup_span, span
 
 _NOISE_POOL_SEED = 0x5EED
 
@@ -113,6 +122,7 @@ class Observation(NamedTuple):
         return d
 
 
+@setup_span("setup/params")
 def make_params(cfg: SimConfig, map_yaml_path: str, map_ext: str = ".png",
                 vehicle: Optional[VehicleParams] = None,
                 tmap: Optional[TrackMap] = None, device="cuda") -> EnvParams:
@@ -131,6 +141,7 @@ def make_params(cfg: SimConfig, map_yaml_path: str, map_ext: str = ".png",
                      noise_pool=_make_noise_pool(cfg, device))
 
 
+@setup_span("setup/params")
 def make_multimap_params(cfg: SimConfig, map_yaml_paths, map_ext: str = ".png",
                          vehicle: Optional[VehicleParams] = None,
                          device="cuda") -> EnvParams:
@@ -310,18 +321,19 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     midx = None if state.map_idx is None else state.map_idx[:, None]
 
     pregeo = None
-    pack = state_kernel_pack(cfg, params, midx)
-    if pack is not None:
-        # one launch for steer delay, PID, integration, yaw wrap and the
-        # megakernel's per-row operands; its scalar pack is that of these
-        # params, rebuilt whenever one of them changed (JAX:
-        # pallas_state.pack_rows in sim_step)
-        x, steer_buf, steer_cnt, rows, scal = state_kernels.prestep(
-            cfg, params, state.x, state.steer_buf, state.steer_cnt, actions, pack)
-        pregeo = (rows, scal)
-    else:
-        x, steer_buf, steer_cnt = state_kernels.dynamics_chain(
-            cfg, p, state.x, state.steer_buf, state.steer_cnt, actions)
+    with span("env/dynamics"):
+        pack = state_kernel_pack(cfg, params, midx)
+        if pack is not None:
+            # one launch for steer delay, PID, integration, yaw wrap and the
+            # megakernel's per-row operands; its scalar pack is that of these
+            # params, rebuilt whenever one of them changed (JAX:
+            # pallas_state.pack_rows in sim_step)
+            x, steer_buf, steer_cnt, rows, scal = state_kernels.prestep(
+                cfg, params, state.x, state.steer_buf, state.steer_cnt, actions, pack)
+            pregeo = (rows, scal)
+        else:
+            x, steer_buf, steer_cnt = state_kernels.dynamics_chain(
+                cfg, p, state.x, state.steer_buf, state.steer_cnt, actions)
     poses = x[..., [0, 1, 4]]
     vel = x[..., 3]
 
@@ -330,41 +342,47 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     # it rides the kernel), or from the clean scan (the exact march or an
     # unfused fast scan) plus the eager noise add and iTTC check, as the JAX
     # package orders them
-    noise, pool_off = _noise_rows(cfg, params, x.shape[0], gen)
-    verts = col.get_vertices(poses, p.length, p.width)
+    with span("env/noise"):
+        noise, pool_off = _noise_rows(cfg, params, x.shape[0], gen)
     mega = scan_fast.use_megakernel(cfg)
-    opp = None
-    if scan_fast.use_fused_opp_mega(cfg) if mega else scan_fast.use_fused_opp(cfg):
-        opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
-    if mega or scan_fast.use_fused_ttc(cfg):
-        scans, hit01 = scan_fast.trace_fast_mxu(
-            poses, params.tables, params.tmap, params.rtex, cfg,
-            fused_ttc=(noise, vel), opp=opp, pool_off=pool_off, pregeo=pregeo,
-            midx=midx)
-        ttc_hit = (hit01 > 0) & (vel != 0.0)
-    else:
-        if cfg.scan_mode == "exact":
+    fused = mega or scan_fast.use_fused_ttc(cfg)
+    with span("env/scan"):
+        # the cars' vertices are the opponents' polygons of the ray cast
+        verts = col.get_vertices(poses, p.length, p.width)
+        opp = None
+        if scan_fast.use_fused_opp_mega(cfg) if mega else scan_fast.use_fused_opp(cfg):
+            opp = agent_scan.opponent_slab_scalars(poses, verts, params.tables)
+        if fused:
+            scans, hit01 = scan_fast.trace_fast_mxu(
+                poses, params.tables, params.tmap, params.rtex, cfg,
+                fused_ttc=(noise, vel), opp=opp, pool_off=pool_off, pregeo=pregeo,
+                midx=midx)
+            ttc_hit = (hit01 > 0) & (vel != 0.0)
+        elif cfg.scan_mode == "exact":
             scans = scan_ops.trace(poses, params.tables, params.tmap, cfg, midx)
         else:
             scans = scan_fast.trace_fast_mxu(poses, params.tables, params.tmap,
                                              params.rtex, cfg, midx=midx)
-        if cfg.scan_noise_std > 0:
-            scans = scans + noise.to(scans.dtype)[:, None, :]
-        ttc_hit = agent_scan.check_ttc(scans, vel, params.tables, cfg.ttc_thresh)
+    if not fused or opp is None:
+        with span("env/scan_tail"):
+            if not fused:
+                if cfg.scan_noise_std > 0:
+                    scans = scans + noise.to(scans.dtype)[:, None, :]
+                ttc_hit = agent_scan.check_ttc(scans, vel, params.tables, cfg.ttc_thresh)
+            # opponent ray casting on the noisy scans (base_classes.py:204-225),
+            # unless a kernel already did it; it reads the poses, not the
+            # state the collision below freezes
+            if opp is None:
+                scans = agent_scan.ray_cast_all_opponents(poses, scans, verts,
+                                                          params.tables)
 
-    # pairwise body collision (base_classes.py:529-543)
-    body_hits = col.pairwise_hits_from_poses(poses, p.length, p.width).to(x.dtype)
-
-    # iTTC against walls freezes the dynamic state (base_classes.py:227-252)
-    freeze = ttc_hit[..., None] & (torch.arange(7, device=x.device) >= 3)
-    x = torch.where(freeze, torch.zeros_like(x), x)
-
-    # opponent ray casting on the noisy scans (base_classes.py:204-225),
-    # unless the megakernel already did it
-    if opp is None:
-        scans = agent_scan.ray_cast_all_opponents(poses, scans, verts, params.tables)
-
-    collisions = torch.maximum(body_hits, ttc_hit.to(body_hits.dtype))
+    with span("env/collision"):
+        # pairwise body collision (base_classes.py:529-543)
+        body_hits = col.pairwise_hits_from_poses(poses, p.length, p.width).to(x.dtype)
+        # iTTC against walls freezes the dynamic state (base_classes.py:227-252)
+        freeze = ttc_hit[..., None] & (torch.arange(7, device=x.device) >= 3)
+        x = torch.where(freeze, torch.zeros_like(x), x)
+        collisions = torch.maximum(body_hits, ttc_hit.to(body_hits.dtype))
     new_state = state._replace(x=x, steer_buf=steer_buf, steer_cnt=steer_cnt,
                                collisions=collisions,
                                step_idx=state.step_idx + 1)
@@ -412,11 +430,13 @@ def step(cfg: SimConfig, params: EnvParams, state: EnvState, actions, gen):
     """Full env step (f110_env.py:261-302) -> (state', obs, reward (E,),
     done (E,), info) with the per-agent ``checkpoint_done`` flags in info."""
     state, scans = sim_step(cfg, params, state, actions, gen)
-    state = state._replace(current_time=state.current_time + cfg.timestep)
-    state, done, finished = _lap_done_update(cfg, state)
-    reward = torch.full(done.shape, cfg.timestep, dtype=cfg.tdtype,
-                        device=done.device)
-    return state, _build_obs(state, scans), reward, done, {"checkpoint_done": finished}
+    with span("env/laps"):
+        state = state._replace(current_time=state.current_time + cfg.timestep)
+        state, done, finished = _lap_done_update(cfg, state)
+        reward = torch.full(done.shape, cfg.timestep, dtype=cfg.tdtype,
+                            device=done.device)
+        obs = _build_obs(state, scans)
+    return state, obs, reward, done, {"checkpoint_done": finished}
 
 
 def staggered_start_poses(num_agents: int) -> np.ndarray:

@@ -32,7 +32,9 @@ Usage:
 
 It runs on the card ("cuda") unless ``--device cpu`` is given; there is no
 fallback.  ``--profile`` adds a torch.profiler table of one iteration by
-section (ppo/policy, ppo/env_step, ppo/opponents, ppo/reset, ppo/update).
+section (ppo/policy, ppo/env_step, ppo/opponents, ppo/reset, ppo/update),
+the envs that iteration restarted, and the set-up spans' seconds (params,
+maps, EDTs, textures; ``utils/profiling``).
 """
 
 import argparse
@@ -46,7 +48,7 @@ from red_gym_tpu_torch import assets, env as envlib, rollout
 from red_gym_tpu_torch.agents.ppo import DIAGNOSTICS, PPO, PPOConfig
 from red_gym_tpu_torch.config import Integrator, SimConfig, resolve_device
 from red_gym_tpu_torch.parallel import distributed as pdist, draws, sharding as sh
-from red_gym_tpu_torch.utils import checkpoint as ckpt
+from red_gym_tpu_torch.utils import checkpoint as ckpt, profiling
 
 # JAX's seven columns (examples/train_ppo.py), then the update's diagnostics
 CSV_COLUMNS = ("iter", "env_steps", "loss", "reward_mean", "done_rate", "speed_mean",
@@ -187,7 +189,9 @@ def profile_iteration(ppo: PPO, pstate, states, obs):
     """One train_step under torch.profiler.  For each section (the ranges
     ppo.py records): its host ms (the ranges' wall time on the host), its
     device busy ms (the kernels launched inside it) and, on the card, its
-    device span ms (first to last of its work on the stream)."""
+    device span ms (first to last of its work on the stream).  Then the
+    envs the iteration restarted (counter ``rollout/restarted_envs``) and
+    the set-up spans so far."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,6 +199,7 @@ def profile_iteration(ppo: PPO, pstate, states, obs):
     if obs.scans.is_cuda:
         acts.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
+    restarted = profiling.counter_totals().get("rollout/restarted_envs", 0)
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
         out = ppo.train_step(pstate, states, obs)
@@ -214,6 +219,11 @@ def profile_iteration(ppo: PPO, pstate, states, obs):
              f"{span[n]:.1f} ms ({calls[n]:.0f} calls)" for n in SECTIONS if calls[n]]
     print(f"[profile] one iteration {wall:.1f} ms under the profiler: " + "; ".join(parts),
           flush=True)
+    restarted = profiling.counter_totals().get("rollout/restarted_envs", 0) - restarted
+    setup = [f"{n} {v['seconds']:.3f} s ({v['count']} calls)"
+             for n, v in profiling.span_totals().items()]
+    print(f"[profile] envs restarted in the iteration: {restarted}; set-up: "
+          + "; ".join(setup), flush=True)
     return out
 
 

@@ -22,6 +22,7 @@ import torch
 from scipy.ndimage import distance_transform_edt
 
 from red_gym_tpu_torch.config import resolve_device
+from red_gym_tpu_torch.utils.profiling import setup_span
 
 
 class TrackMap(NamedTuple):
@@ -238,6 +239,7 @@ def load_map_image(image_path: str) -> np.ndarray:
     return np.where(img <= 128.0, 0.0, 255.0)
 
 
+@setup_span("setup/map_load")
 def load_map(map_yaml_path: str, map_ext: str = ".png",
              dtype=torch.float32, device="cuda",
              pad_to: tuple[int, int] | None = None,
@@ -258,12 +260,13 @@ def load_map(map_yaml_path: str, map_ext: str = ".png",
     origin = meta["origin"]
     occ = load_map_image(os.path.splitext(map_yaml_path)[0] + map_ext)
     h, w = occ.shape
-    if edt_backend == "device":
-        from red_gym_tpu_torch.ops.edt import edt
+    with setup_span("setup/edt"):
+        if edt_backend == "device":
+            from red_gym_tpu_torch.ops.edt import edt
 
-        dt = edt(torch.as_tensor(occ, device=device), resolution)
-    else:
-        dt = resolution * distance_transform_edt(occ)
+            dt = edt(torch.as_tensor(occ, device=device), resolution)
+        else:
+            dt = resolution * distance_transform_edt(occ)
 
     def t(v, dt_=dtype):
         return torch.as_tensor(v, dtype=dt_, device=device)

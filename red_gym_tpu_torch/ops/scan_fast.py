@@ -60,6 +60,7 @@ from red_gym_tpu_torch.config import SimConfig
 from red_gym_tpu_torch.maps.loader import TrackMap
 from red_gym_tpu_torch.ops import blend_kernels, scan_kernels, spectral_kernels
 from red_gym_tpu_torch.ops import scan as scan_ops
+from red_gym_tpu_torch.utils.profiling import setup_span, span
 
 _N_GRID = 8          # fine-grid samples per edge bin pair
 _EDGE_CHUNK = 1 << 20  # edge bins localized per call (bounds memory)
@@ -257,6 +258,7 @@ def texture_constants(cfg: SimConfig, dtype: torch.dtype, device) -> dict:
             for k, v in consts.items()}
 
 
+@setup_span("setup/texture")
 def build_range_texture(tmap: TrackMap, cfg: SimConfig) -> RangeTexture:
     """March every theta bin from every texture cell centre, on tmap's device.
 
@@ -1000,7 +1002,8 @@ def trace_fast_mxu(pose, tables, tmap: TrackMap, rtex: RangeTexture,
                          "renders have a fused noise + iTTC epilogue")
     _check_fp32_matmul(pose.device, rtex.fmat.dtype)
     t_bins = cfg.rt_theta_bins
-    sp = rolled_spectra(pose, tmap, rtex, cfg, midx)
+    with span("scan/prep"):
+        sp = rolled_spectra(pose, tmap, rtex, cfg, midx)
     if not use_kernels(cfg):
         if fused_ttc is not None:
             raise ValueError("fused_ttc needs the scan kernels: dtype='float32' "

@@ -26,6 +26,7 @@ from red_gym_tpu_torch.config import SimConfig
 from red_gym_tpu_torch.env import (EnvParams, EnvState, Observation, check_map_idx,
                                    reset, reset_unchecked, skip_step_draws, step)
 from red_gym_tpu_torch.parallel import draws
+from red_gym_tpu_torch.utils.profiling import count, span
 
 
 def _env_maps(params: EnvParams, map_axis, e_n: int, device):
@@ -104,28 +105,35 @@ def reset_done(cfg: SimConfig, params: EnvParams, state: EnvState, obs: Observat
     Inside ``parallel.draws.row_draws`` (a rank's rows of a process
     group's envs) the done envs of every rank are counted, the reset draws
     are made for all of them and this rank keeps its own; a rank with none
-    still makes them, and ``reset_any`` says whether any rank restarted."""
-    idx = torch.nonzero(done).squeeze(1)
+    still makes them, and ``reset_any`` says whether any rank restarted.
+
+    Spans: ``rollout/done_read`` (the host read) and ``rollout/restart``
+    (the draws and the re-run of the done envs); the counter
+    ``rollout/restarted_envs`` adds this process's done envs."""
+    with span("rollout/done_read"):
+        idx = torch.nonzero(done).squeeze(1)
     shard = draws.current()
     n_local = idx.numel()
+    count("rollout/restarted_envs", n_local)
     n_all, before = ((n_local, 0) if shard is None
                      else draws.count_rows(n_local, shard.group))
     if not n_all:
         return state, obs, False
-    with (contextlib.nullcontext() if shard is None
-          else draws.row_draws(n_all, before, shard.group)):
-        new_maps = None if state.map_idx is None else state.map_idx[idx]
-        if randomize_starts is not None:
-            new_maps = draws.draw_rows(n_local, lambda n: torch.randint(
-                0, randomize_starts.shape[0], (n,), generator=gen, device=idx.device,
-                dtype=torch.int32))
-        if not n_local:
-            skip_step_draws(cfg, params, gen)
-            return state, obs, True
-        poses = (state.start_pose[idx] if randomize_starts is None
-                 else randomize_starts[new_maps])
-        r_state, r_obs, *_ = reset_unchecked(cfg, params, poses, gen, new_maps)
-    return _select(r_state, state, idx), _select(r_obs, obs, idx), True
+    with span("rollout/restart"):
+        with (contextlib.nullcontext() if shard is None
+              else draws.row_draws(n_all, before, shard.group)):
+            new_maps = None if state.map_idx is None else state.map_idx[idx]
+            if randomize_starts is not None:
+                new_maps = draws.draw_rows(n_local, lambda n: torch.randint(
+                    0, randomize_starts.shape[0], (n,), generator=gen,
+                    device=idx.device, dtype=torch.int32))
+            if not n_local:
+                skip_step_draws(cfg, params, gen)
+                return state, obs, True
+            poses = (state.start_pose[idx] if randomize_starts is None
+                     else randomize_starts[new_maps])
+            r_state, r_obs, *_ = reset_unchecked(cfg, params, poses, gen, new_maps)
+        return _select(r_state, state, idx), _select(r_obs, obs, idx), True
 
 
 def make_rollout(cfg: SimConfig, params: EnvParams,

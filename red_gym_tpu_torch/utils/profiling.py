@@ -1,27 +1,140 @@
-"""Profiling and on-device metrics.
+"""Profiling: spans and counters on the profiler's clock, set-up timing,
+and on-device metrics.
 
-PyTorch counterpart of ``red_gym_tpu/utils/profiling.py``: a torch.profiler
-trace context, a wall-clock step timer that waits for the device before it
-reads the clock, and metric accumulators of 0-d device tensors, so a
-training loop sums its metrics without a host sync a step.
+PyTorch counterpart of ``red_gym_tpu/utils/profiling.py``, and the port's
+one tracing module:
+
+- ``span(name)`` marks a stretch of the step path.  While a torch.profiler
+  session records, it is a ``record_function`` range, on the clock of the
+  device's operations, so a trace attributes each idle gap of the device
+  to the innermost span around it.  With no session recording it costs
+  one flag check.
+- ``count(name, n)`` adds ``n`` to a counter while a session records, so
+  a traced window's counters hold that window.  ``n`` is a host number:
+  a counter never reads a device tensor (that would wait for the device).
+- ``setup_span(name)`` is a span that also times work done once per
+  process or per map (params, maps, EDTs, textures), always: its seconds
+  end in a synchronize of the card, so they hold the device work it
+  queued.
+- ``span_totals``, ``counter_totals`` and ``reset_totals`` read and clear
+  the set-up spans' seconds and the counters; ``trace(logdir)`` exports a
+  profiled block with them beside it.
+
+Also ``force`` (wait for a tree of tensors) and ``Metrics``, accumulators
+of 0-d device tensors, so a training loop sums its metrics without a host
+sync a step.  Unlike the JAX package there is no ``StepTimer``: a rate is
+measured by the caller around work that ends in a synchronize.
+
+The span names are a contract: the benchmark's per-layer metrics read
+them (``env/*`` and ``scan/prep`` in ``env.py`` and ``ops/scan_fast.py``,
+``rollout/*`` in ``rollout.py``, ``ppo/*`` and ``plan/*`` in
+``agents/``, ``setup/*`` where the params are made).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import json
 import os
 import time
 from typing import Any, Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from red_gym_tpu_torch.config import resolve_device
+
+# set-up spans by name ({"count", "seconds"}) and counters by name
+_SPANS: Dict[str, dict] = {}
+_COUNTERS: Dict[str, float] = {}
+
+
+class span:
+    """A ``record_function`` range named ``name`` while a profiler session
+    records (the flag the profiler sets as it starts and clears as it
+    stops); otherwise nothing but that flag check.  A class, not a
+    generator: entering and leaving it allocate nothing else."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _autograd_profiler.record_function(self.name).__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+def count(name: str, n) -> None:
+    """Add the host number ``n`` to counter ``name`` while a profiler
+    session records; otherwise nothing but the flag check."""
+    if _autograd_profiler._is_profiler_enabled:
+        if isinstance(n, torch.Tensor):
+            raise TypeError(f"counter {name!r} takes a host number, not a tensor: "
+                            "reading one would wait for the device")
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+class setup_span(span):
+    """A span that always adds its seconds and its count to the set-up
+    spans' totals.  Its seconds end in a synchronize of the card (where
+    CUDA is in use), so they hold the device work queued inside it; once
+    per process or per map, that costs nothing on a step.  A context
+    manager, and a decorator as ``@setup_span(name)``."""
+
+    __slots__ = ("_t0",)
+
+    def __enter__(self):
+        super().__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        entry = _SPANS.setdefault(self.name, {"count": 0, "seconds": 0.0})
+        entry["count"] += 1
+        entry["seconds"] += time.perf_counter() - self._t0
+        return super().__exit__(*exc)
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            with setup_span(self.name):
+                return fn(*args, **kwargs)
+        return timed
+
+
+def span_totals() -> Dict[str, dict]:
+    """{name: {"count", "seconds"}} of the set-up spans so far."""
+    return {k: dict(v) for k, v in _SPANS.items()}
+
+
+def counter_totals() -> Dict[str, float]:
+    """{name: total} of the counters so far."""
+    return dict(_COUNTERS)
+
+
+def reset_totals() -> None:
+    """Clear the set-up spans' totals and the counters."""
+    _SPANS.clear()
+    _COUNTERS.clear()
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """torch.profiler trace of the block (host, and the card where there is
-    one), written to ``logdir/trace.json`` (chrome://tracing, Perfetto)."""
+    one), written to ``logdir/trace.json`` (chrome://tracing, Perfetto),
+    with the registry (``span_totals``, ``counter_totals``) beside it in
+    ``logdir/spans.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -35,6 +148,8 @@ def trace(logdir: str):
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump({"spans": span_totals(), "counters": counter_totals()}, f, indent=1)
 
 
 def _tensors(tree: Any):
@@ -54,26 +169,6 @@ def force(tree: Any) -> None:
     CUDA device they lie on; CPU tensors are ready already."""
     for dev in {t.device for t in _tensors(tree) if t.is_cuda}:
         torch.cuda.synchronize(dev)
-
-
-class StepTimer:
-    """Wall-clock rate meter for step functions."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self._t0 = time.time()
-        self._count = 0
-
-    def tick(self, n: int = 1):
-        self._count += n
-
-    def rate(self, out: Any = None) -> float:
-        if out is not None:
-            force(out)
-        dt = time.time() - self._t0
-        return self._count / dt if dt > 0 else float("inf")
 
 
 class Metrics:
